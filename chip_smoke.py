@@ -13,16 +13,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 the shapes of the main path (min-plus: torch.equal), plus the
                 EDT against a brute-force distance on a small mask; kernel
                 and plain-version times with CUDA events;
-  4. main path  the flagship recipe (config/flagship.py: KBPN 4 stages x4,
-                md 128, kernel 7 -> 21, PSPNet-ResNet34, IMAGE_SIZE 224, bf16
-                compute) with random weights from a seed, scoring 8
+  4. main path  evaluation: the flagship recipe (config/flagship.py: KBPN 4
+                stages x4, md 128, kernel 7 -> 21, PSPNet-ResNet34, IMAGE_SIZE
+                224, bf16 compute) with random weights from a seed, scoring 8
                 synthetic 448x448 crack images made on the card
                 (data/synthetic.py; AIU + the device HD/MSD bank) through
                 engine/inference.score_for_ss; kernel launch counts are reset
                 just before and read just after; then the HD bank of one image
                 again with the plain row pass, which must agree exactly, and
                 the model in float32 on the card against the same weights on
-                the host CPU on one patch (relative error <= 1e-3).
+                the host CPU on one patch (relative error <= 1e-3);
+  5. train      training: the flagship recipe at batch 6 on 224x224 crops
+                of the port's synthetic set and loader, random init from the
+                seed, through the train step of engine/trainer.do_train: 3
+                warm-up and 10 timed steps from iteration 1 (GT-kernel
+                window), then one step at 10001 (kernel window) and one at
+                30001 (joint phase); launch counts reset just before and read
+                just after (2 min-plus launches per step: the boundary loss's
+                SDF). Checks: every loss finite; the frozen group of each
+                window bit for bit unchanged; the SDF of a training batch
+                equal between the kernel and the plain row pass; one step
+                (TF32 off, dropout off) on the card against the same weights
+                and batch on the host CPU, at iterations 1 and 30001, in
+                float64 (every grad tensor elementwise) and in float32 (the
+                loss, each gradient group), as check_train_step_against_cpu
+                states.
 
 Then the `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 It exits without a result when CUDA is absent or the package is missing.
@@ -37,12 +52,18 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 8
 HR_SIZE = 448
 SEED = 1121
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # steps from iteration 1
+LATE_ITERATIONS = (10001, 30001)  # kernel window, joint phase
+CPU_CHECK_BATCH = 2  # samples of the card-vs-CPU train step
+FLOAT64_LOSS_TOL, FLOAT64_GRAD_TOL = 1e-9, 1e-6  # card vs CPU in float64
+FLOAT32_ENVELOPE, FLOAT32_FLOOR = 10.0, 1e-4  # card vs CPU in float32, per grad group
 MEM_BW = 3.35e12  # H100 SXM device memory, bytes/s (NVIDIA data sheet)
 
 
@@ -142,28 +163,18 @@ def phase_kernels(dev):
 
     # timing at the HD-bank shape of one 448x448 image: (99, 449, 449)
     g = _column_distance(torch.rand((99, 449, 449), generator=gen, device=dev) < 0.02)
-    g = g.contiguous()
-    ms = _time_ms(lambda: minplus_rows(g), reps=25, warmup=3)
-    plain_ms = _time_ms(lambda: minplus_rows_reference(g), reps=5, warmup=1)
-    rows, w = g.numel() // g.shape[-1], g.shape[-1]
     props = torch.cuda.get_device_properties(dev)
     clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    # one fused multiply-add and one min per candidate (r, j, k), issued on
-    # 128 FP32 lanes per SM per clock
-    ops = 2.0 * rows * w * w
-    ops_ms = ops / (props.multi_processor_count * 128 * clock_hz) * 1e3
-    bytes_ms = 2.0 * g.numel() * 4 / MEM_BW * 1e3  # g read once, out written once
+    bank = _time_minplus(g.contiguous(), props, clock_hz, reps=25)
     entry = {
         "name": "minplus_rows", "route": "cuda", "source": "csbsr_tpu_torch/csrc/minplus.cu",
         "replaces": "csbsr_tpu/ops/pallas/minplus.py:68", "launches": None,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        "max_abs_err": max_err, "ms": bank["ms"], "plain_ms": bank["plain_ms"],
+        "bound_ms": bank["bound_ms"], "bound_by": bank["bound_by"], "library_ms": None,
     }
     emit({"phase": "kernels", "minplus_checks": checks, "edt_vs_bruteforce_max_err": edt_err,
-          "timing_shape": list(g.shape), "candidates": rows * w * w,
           "sm_count": props.multi_processor_count, "sm_clock_max_hz": clock_hz,
-          "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, "minplus": entry})
+          "minplus_bank_shape": bank, "minplus": entry})
     return [entry]
 
 
@@ -231,6 +242,265 @@ def phase_main_path(dev):
     return launches
 
 
+def _time_minplus(g, props, clock_hz, reps):
+    """Kernel and plain-version ms on `g`, and the bound of the work."""
+    from csbsr_tpu_torch.ops.minplus import minplus_rows, minplus_rows_reference
+
+    ms = _time_ms(lambda: minplus_rows(g), reps=reps, warmup=3)
+    plain_ms = _time_ms(lambda: minplus_rows_reference(g), reps=5, warmup=1)
+    rows, w = g.numel() // g.shape[-1], g.shape[-1]
+    # one fused multiply-add and one min per candidate (r, j, k), issued on
+    # 128 FP32 lanes per SM per clock
+    ops_ms = 2.0 * rows * w * w / (props.multi_processor_count * 128 * clock_hz) * 1e3
+    bytes_ms = 2.0 * g.numel() * 4 / MEM_BW * 1e3  # g read once, out written once
+    return {"shape": list(g.shape), "candidates": rows * w * w, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms}
+
+
+def phase_train(dev):
+    import tempfile
+
+    from csbsr_tpu_torch.config.flagship import flagship_cfg
+    from csbsr_tpu_torch.data import IterationBasedLoader, SubsetView
+    from csbsr_tpu_torch.engine.phase import phase_config_from_cfg
+    from csbsr_tpu_torch.engine.train_state import KERNEL, SR_CORE, grad_group_ids
+    from csbsr_tpu_torch.engine.trainer import build_train_step, do_train
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.ops import cuda_build
+    from csbsr_tpu_torch.ops.edt import _column_distance, sdf_normalized
+    from csbsr_tpu_torch.ops.minplus import minplus_rows_reference
+    from csbsr_tpu_torch.train import build_datasets, split_and_eval_batches
+
+    cfg = flagship_cfg(SEED)
+    b = cfg.SOLVER.BATCH_SIZE
+    pool = build_datasets(cfg, synthetic=True)
+    train_idx, _ = split_and_eval_batches(cfg, pool, max_eval_batches=1)
+    n_train = len(train_idx)
+    n_loop = TRAIN_WARMUP + TRAIN_TIMED
+    n_steps = n_loop + len(LATE_ITERATIONS)
+    loader = IterationBasedLoader(SubsetView(pool, train_idx), b, n_steps, seed=cfg.SEED,
+                                  num_workers=4)
+    model = model_from_cfg(cfg, device=dev)
+    pc = phase_config_from_cfg(cfg, n_train)
+    groups = grad_group_ids(model.named_parameters())
+
+    def snapshot(gid):
+        return {n: p.detach().clone() for n, p in model.named_parameters() if groups[n] == gid}
+
+    def changed(snap):
+        params = dict(model.named_parameters())
+        return [n for n, v in snap.items() if not torch.equal(params[n], v)]
+
+    # iterations 1..13 through do_train itself (one-ahead pinned copies); it
+    # logs every step after reading the step's losses back, so the gaps
+    # between log calls are the step times
+    batches = iter(loader)
+    loop_batches = [next(batches) for _ in range(n_loop)]
+    log_t = []
+    kernel_before, core_before = snapshot(KERNEL), snapshot(SR_CORE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg.OUTPUT_DIR = out_dir
+        cuda_build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = do_train(cfg, model, loop_batches, None, log_step=1, save_step=0,
+                         eval_step_every=0, num_train_ds=n_train,
+                         log_fn=lambda line: log_t.append(time.perf_counter()))
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            losses = [{"iteration": r["step"], **{k: r[k] for k in ("loss", "seg_loss", "sr_loss")}}
+                      for r in map(json.loads, f)]
+    step_s = [log_t[0] - t0] + [t1 - t0 for t0, t1 in zip(log_t, log_t[1:])]
+    gt_core_changed, gt_kernel_changed = changed(core_before), changed(kernel_before)
+    # then the same train step at the window edges, with the step counter set
+    step = build_train_step(cfg, pc)
+    late = {}
+    for it, hb in zip(LATE_ITERATIONS, batches):
+        state.step = it - 1
+        kernel_before, core_before = snapshot(KERNEL), snapshot(SR_CORE)
+        m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in hb.items()})
+        late[it] = {"loss": float(m["loss"]), "seg_loss": float(m["seg_loss"]),
+                    "sr_loss": float(m["sr_loss"]), "alpha": m["alpha"],
+                    "kernel_params_changed": len(changed(kernel_before)),
+                    "sr_core_params_changed": len(changed(core_before))}
+        losses.append({"iteration": it, **{k: late[it][k] for k in ("loss", "seg_loss",
+                                                                      "sr_loss")}})
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    bad = [r for r in losses if not all(math.isfinite(r[k]) for k in ("loss", "seg_loss",
+                                                                        "sr_loss"))]
+    if bad:
+        raise AssertionError(f"non-finite train losses: {bad}")
+    per_step = 2  # sdf_normalized of the shared target: two EDTs
+    if launches.get("minplus_rows", 0) != per_step * n_steps:
+        raise AssertionError(f"expected {per_step * n_steps} minplus launches in {n_steps} "
+                             f"train steps, got {launches}")
+    if gt_kernel_changed or not gt_core_changed:
+        raise AssertionError(f"GT-kernel window: KERNEL params changed {gt_kernel_changed}, "
+                             f"SR_CORE params changed {len(gt_core_changed)}")
+    k_win = late[LATE_ITERATIONS[0]]
+    if k_win["sr_core_params_changed"] or not k_win["kernel_params_changed"]:
+        raise AssertionError(f"kernel window: {k_win}")
+
+    # the SDF of one training batch: kernel against the plain row pass
+    first = {k: torch.from_numpy(v).to(dev) for k, v in loop_batches[0].items()}
+    mask = first["seg"] > 0.5
+    if not torch.equal(sdf_normalized(mask), sdf_normalized(mask, minplus_rows_reference)):
+        raise AssertionError("train SDF differs between the kernel and the plain row pass")
+    props = torch.cuda.get_device_properties(dev)
+    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    train_shape = _time_minplus(_column_distance(mask).contiguous(), props, clock_hz, reps=50)
+
+    cpu_check = check_train_step_against_cpu(model, cfg, pc, first)
+    timed = step_s[TRAIN_WARMUP:]
+    emit({"phase": "train", "config": "configs/config_csbsr_pspnet.yaml (random init, seed "
+          f"{SEED}, bf16 compute)", "entry": "engine/trainer.do_train, then its train step",
+          "batch": b, "crop_hw": list(cfg.INPUT.IMAGE_SIZE),
+          "train_pool": len(pool), "steps": n_steps, "first_step_s": step_s[0],
+          "steps_per_s_after_warmup": len(timed) / sum(timed),
+          "images_per_s_after_warmup": b * len(timed) / sum(timed), "step_s": step_s,
+          "peak_mem_gb": peak_gb, "launches": launches, "minplus_launches_per_step": per_step,
+          "losses": losses, "late_iterations": late, "sdf_plain_row_pass_equal": True,
+          "minplus_train_shape": train_shape, "float32_vs_cpu": cpu_check})
+    return launches, train_shape
+
+
+def _step_grads(model, weights, batch, phase, dtype, loss_fn):
+    """Load `weights` into `model` in `dtype`, run one train-mode step
+    (dropout off, TF32 off, no optimizer) and return (loss, {name: grad as a
+    float64 CPU copy})."""
+    from csbsr_tpu_torch.utils.device import full_fp32
+
+    model.to(dtype).load_state_dict(weights)
+    model.dtype = dtype
+    model.train()
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.eval()
+    b = {k: v.to(dtype) for k, v in batch.items()}
+    with full_fp32():
+        out = model(b["lr"], b["kernel"].reshape(b["kernel"].shape[0], -1),
+                    phase["use_gt_kernel"])
+        loss = loss_fn(out, b, phase)["total"]
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().to(
+        "cpu", torch.float64, copy=True) for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _rel_l2(grads, ref, names):
+    """|grads - ref| / |ref| over the tensors `names`, flattened together."""
+    diff = math.sqrt(sum(float((grads[k] - ref[k]).square().sum()) for k in names))
+    norm = math.sqrt(sum(float(ref[k].square().sum()) for k in names))
+    return diff / norm if norm else (0.0 if diff == 0.0 else math.inf)
+
+
+def check_train_step_against_cpu(model, cfg, pc, batch):
+    """One train-mode step (forward, loss, backward; TF32 off, dropout off;
+    no optimizer) on the card and on the host CPU, on the same weights and
+    batch, at iteration 1 (GT-kernel window, SR loss alone) and at 30001
+    (joint phase, SR and seg losses), in float64 and in float32.
+
+    - float64: the loss to FLOAT64_LOSS_TOL relative, and every gradient
+      tensor of every group elementwise to FLOAT64_GRAD_TOL of its largest
+      |value| (floored at 1e-3 of the model's largest |grad|: conv biases
+      that feed a train-mode BatchNorm have a zero gradient in exact
+      arithmetic). Float64 rounding leaves the two far inside that, so any
+      difference in what the card computes shows, in PSPNet's backward as
+      anywhere else.
+    - float32: the loss to 1e-4 relative. The float32 gradient of the joint
+      phase is itself about 1% off the float64 one in relative L2, on the
+      card and on the CPU alike (PERF.md), so it cannot be held elementwise;
+      instead, per gradient group (SR_CORE, KERNEL, SEG, BLURSKIP), the
+      card's relative L2 distance from the CPU's float64 gradient must stay
+      within FLOAT32_ENVELOPE times the CPU's own float32 distance from it,
+      or under FLOAT32_FLOOR. A group whose float64 gradient is zero (SEG at
+      iteration 1) must be zero on the card too.
+
+    On an H100 80GB HBM3 (700 W) at batch 2: float64 losses within 1.1e-15,
+    the worst tensor within 1.5e-12 of its largest |value| at 30001; float32
+    group errors at 30001 0.37-0.80% on the card and 0.80-1.28% on the CPU,
+    at iteration 1 4.1e-5 and 2.2e-5 (SR_CORE). The float64 CPU step takes
+    about 90 s."""
+    from csbsr_tpu_torch.engine.losses_glue import build_loss_fn
+    from csbsr_tpu_torch.engine.phase import compute_phase
+    from csbsr_tpu_torch.engine.train_state import grad_group_ids
+    from csbsr_tpu_torch.engine.trainer import (DEGRADE_STREAM, make_degrade_fn,
+                                                step_generator)
+    from csbsr_tpu_torch.models import model_from_cfg
+
+    n = CPU_CHECK_BATCH
+    hr = batch["hr"][:n]
+    lr, kernels = make_degrade_fn(cfg)(hr, step_generator(SEED, 0, DEGRADE_STREAM, hr.device))
+    data = {"card": {"hr": hr, "seg": batch["seg"][:n], "lr": lr, "kernel": kernels}}
+    data["cpu"] = {k: v.cpu() for k, v in data["card"].items()}
+    models = {"card": model, "cpu": model_from_cfg(cfg, device="cpu")}
+    loss_fn = build_loss_fn(cfg)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    group_of = grad_group_ids(model.named_parameters())
+    names = {"SR_CORE": 0, "KERNEL": 1, "SEG": 2, "BLURSKIP": 3}
+    groups = {g: [k for k, v in group_of.items() if v == gid] for g, gid in names.items()}
+    compute = model.dtype
+    report = {}
+    for it in (1, LATE_ITERATIONS[-1]):
+        phase = compute_phase(it, pc)
+        loss, grads, seconds = {}, {}, {}
+        for where in ("card", "cpu"):
+            for dtype in (torch.float64, torch.float32):
+                key = f"{where}_{str(dtype)[6:]}"
+                t0 = time.perf_counter()
+                loss[key], grads[key] = _step_grads(models[where], weights, data[where], phase,
+                                                    dtype, loss_fn)
+                seconds[key] = time.perf_counter() - t0
+        bad = []
+        # float64: elementwise, every tensor
+        ref = grads["cpu_float64"]
+        floor = 1e-3 * max(float(r.abs().max()) for r in ref.values())
+        elem = {k: float((grads["card_float64"][k] - r).abs().max())
+                / max(float(r.abs().max()), floor) for k, r in ref.items()}
+        loss64_err = abs(loss["card_float64"] - loss["cpu_float64"]) / abs(loss["cpu_float64"])
+        bad += [("float64 loss", loss64_err)] if loss64_err > FLOAT64_LOSS_TOL else []
+        bad += [(f"float64 {k}", e) for k, e in elem.items() if e > FLOAT64_GRAD_TOL]
+        # float32: the loss, and each group against the CPU's float32 envelope
+        loss32_err = abs(loss["card_float32"] - loss["cpu_float32"]) / abs(loss["cpu_float32"])
+        bad += [("float32 loss", loss32_err)] if loss32_err > 1e-4 else []
+        by_group = {}
+        for g, ks in groups.items():
+            if not ks:
+                continue
+            card_err = _rel_l2(grads["card_float32"], ref, ks)
+            cpu_err = _rel_l2(grads["cpu_float32"], ref, ks)
+            limit = max(FLOAT32_ENVELOPE * cpu_err, FLOAT32_FLOOR)
+            by_group[g] = {"tensors": len(ks), "card_rel_l2": card_err, "cpu_rel_l2": cpu_err,
+                           "limit": limit}
+            if not card_err <= limit:
+                bad.append((f"float32 group {g}", card_err))
+        if bad:
+            raise AssertionError(f"train step at iteration {it} differs between the card and "
+                                 f"the CPU: {bad[:5]}; losses {loss}")
+        every = list(ref)
+        report[it] = {
+            "loss": loss, "float64_loss_rel_err": loss64_err,
+            "float64_worst": sorted(((e, k) for k, e in elem.items()), reverse=True)[:3],
+            "float32_loss_rel_err": loss32_err, "float32_by_group": by_group,
+            "float32_all": {"card_rel_l2": _rel_l2(grads["card_float32"], ref, every),
+                            "cpu_rel_l2": _rel_l2(grads["cpu_float32"], ref, every),
+                            "card_vs_cpu_rel_l2": _rel_l2(grads["card_float32"],
+                                                          grads["cpu_float32"], every)},
+            "seconds": seconds}
+    model.to(torch.float32).load_state_dict(weights)
+    model.dtype = compute
+    return {"batch": n, "float64_grad_tol": FLOAT64_GRAD_TOL, "float64_loss_tol": FLOAT64_LOSS_TOL,
+            "float32_envelope": FLOAT32_ENVELOPE, "float32_floor": FLOAT32_FLOOR,
+            "by_iteration": report}
+
+
 def check_against_cpu(model, cfg, patch):
     """The full-width model on the card in float32 (no TF32) against the same
     weights on the host CPU, on one LR patch. The CPU path is the one the
@@ -270,9 +540,15 @@ def main():
     phase_env()
     phase_build()
     kernels = phase_kernels(dev)
-    launches = phase_main_path(dev)
+    eval_launches = phase_main_path(dev)
+    train_launches, train_shape = phase_train(dev)
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        by_path = {"eval": eval_launches.get(k["name"], 0),
+                   "train": train_launches.get(k["name"], 0)}
+        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    # the min-plus kernel at the training shape, beside the bank shape's numbers
+    kernels[0]["train_shape"] = {key: train_shape[key] for key in
+                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

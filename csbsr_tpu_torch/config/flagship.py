@@ -2,8 +2,10 @@
 
 KBPN 4 stages x4 (md 128, predicted kernel 7 -> applied kernel 21),
 instance-norm, PSPNet with the dilated ResNet-34, IMAGE_SIZE 224, bf16
-compute. The model keys are set by attribute so a run needs no PyYAML; where
-PyYAML imports and the file is present, the file must agree.
+compute; trained at batch 6 with Adam (lr 2e-5), the BoundaryCombo seg loss,
+the KBPN SR loss and beta 0.3, after the SR-pretrain windows. The file's keys
+are set by attribute so a run needs no PyYAML; where PyYAML imports and the
+file is present, the file must agree.
 """
 from __future__ import annotations
 
@@ -17,10 +19,28 @@ _KEYS = {
     ("MODEL", "SCALE_FACTOR"): 4,
     ("MODEL", "NUM_STAGES"): 4,
     ("MODEL", "DETECTOR_TYPE"): "PSPNet",
+    ("MODEL", "UP_SAMPLE_METHOD"): "pixel_shuffle",
+    ("MODEL", "OPTIMIZER"): "Adam",
+    ("SOLVER", "MAX_ITER"): 700000,
+    ("SOLVER", "BATCH_SIZE"): 6,
+    ("SOLVER", "LR"): 2e-5,
+    ("SOLVER", "SCHEDULER"): False,
+    ("SOLVER", "TASK_LOSS_WEIGHT"): 0.3,
     ("SOLVER", "NORM_SR_OUTPUT"): "instance",
+    ("SOLVER", "SEG_LOSS_FUNC"): "BoundaryCombo",
+    ("SOLVER", "BCELOSS_WEIGHT"): [1, 1],
+    ("SOLVER", "WB_AND_D_WEIGHT"): [1, 1],
+    ("SOLVER", "SR_LOSS_FUNC"): "KBPN",
+    ("SOLVER", "SR_PRETRAIN_ITER"): [1, 30001],
+    ("SOLVER", "SR_SR_MODULE_PRETRAIN_ITER"): [1, 10001],
+    ("SOLVER", "SR_KERNEL_MODULE_PRETRAIN_ITER"): [10001, 20001],
+    ("BLUR", "FLAG"): True,
     ("BLUR", "KERNEL_SIZE"): 7,
     ("BLUR", "KERNEL_SIZE_OUTPUT"): 21,
     ("INPUT", "IMAGE_SIZE"): [224, 224],
+    ("DATASET", "DATA_AUGMENTATION"): [["ConvertFromInts", "None"], ["RandomMirror", "None"],
+                                       ["ToTensor", "None"], ["RandomVerticalFlip", 0.3],
+                                       ["RandomCrop", "None"]],
     ("TPU", "COMPUTE_DTYPE"): "bfloat16",
 }
 

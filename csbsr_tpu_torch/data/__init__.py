@@ -1,3 +1,6 @@
-from .datasets import CrackDataSetTest
+from .datasets import CrackDataSet, CrackDataSetTest, SubsetView, SyntheticCrackDataSet
+from .loader import IterationBasedLoader
+from .transforms import TestTransforms, TrainTransforms
 
-__all__ = ["CrackDataSetTest"]
+__all__ = ["CrackDataSet", "CrackDataSetTest", "IterationBasedLoader", "SubsetView",
+           "SyntheticCrackDataSet", "TestTransforms", "TrainTransforms"]

@@ -12,18 +12,8 @@ import math
 
 import torch
 
-from ..ops.blur import batch_blur
+from ..ops.blur import batch_blur, gaussian_kernels_from
 from ..ops.patch import split_patch
-
-
-def gaussian_kernel(size, sigma_x, sigma_y, theta, device):
-    """Anisotropic Gaussian blur kernel (size, size), sum 1."""
-    r = torch.arange(size, dtype=torch.float32, device=device) - size // 2
-    yy, xx = torch.meshgrid(r, r, indexing="ij")
-    c, s = math.cos(theta), math.sin(theta)
-    u, v = c * xx + s * yy, -s * xx + c * yy
-    k = torch.exp(-0.5 * ((u / sigma_x) ** 2 + (v / sigma_y) ** 2))
-    return k / k.sum()
 
 
 STROKES = 4  # random walks per image
@@ -48,7 +38,8 @@ class SyntheticCrackSet:
                            device=device)
         texture = torch.nn.functional.interpolate(noise, size=(size, size), mode="bilinear")
         hr = (0.35 + 0.3 * texture) * (1.0 - 0.6 * mask)
-        self.kernel = gaussian_kernel(ksize, 2.0, 1.0, 0.5, device)
+        params = torch.tensor([[0.5], [2.0], [1.0]], device=device)  # theta, sigma_x, sigma_y
+        self.kernel = gaussian_kernels_from(*params, size=ksize)[0]
         lr = batch_blur(hr, self.kernel.expand(n, ksize, ksize), stride=sf).clamp(0, 1)
         ph, pw = [s // sf for s in cfg.INPUT.IMAGE_SIZE]
         self.items = []

@@ -9,7 +9,7 @@ ReLU / PReLU(0.01) / LeakyReLU(0.01) or no activation.
 
 Params are float32. Every layer computes in the dtype of its input (the
 model's compute dtype) and casts its weights to it, as the flax modules do
-with `dtype=`.
+with `dtype=`. BatchNorm and Dropout follow flax's train-mode semantics.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils.device import upcast
 
 # -------------------------------------------------------------------- init
 
@@ -84,15 +86,44 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d (eps 1e-5). In eval the running statistics fold into
-    one float32 scale and shift, applied in the input's dtype."""
+    """nn.BatchNorm2d (eps 1e-5) with flax `nn.BatchNorm(momentum=0.9)`
+    semantics.
+
+    Eval: the running statistics fold into one float32 scale and shift,
+    applied in the input's dtype. Train: normalise with the batch mean and
+    the *biased* batch variance over (N, H, W), in float32 (float64 for a
+    float64 input), result in the input's dtype; the running statistics move by
+    `ra = 0.9 * ra + 0.1 * stat`, also with the biased variance (torch's own
+    update uses the unbiased one, which would drift from the JAX package's
+    `batch_stats` at every step)."""
 
     def forward(self, x):
-        if self.training:
-            return super().forward(x)
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        if not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        xf = upcast(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean * self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var * self.momentum)
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(x.dtype)
+
+
+class Dropout(nn.Dropout):
+    """Elementwise dropout, as flax `nn.Dropout`: kept values are scaled by
+    1 / (1 - p). In train mode the mask comes from `generator`, which is
+    required (a step's dropout is reproducible from its seed); in eval it is
+    the identity."""
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training:
+            return x
+        if generator is None:
+            raise ValueError("train-mode Dropout needs the step's generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PReLU(nn.PReLU):

@@ -1,7 +1,10 @@
 """Joint SR + segmentation model (`csbsr_tpu/models/build.py`).
 
-forward(lr, clip_sr=False) ->
+forward(lr, kernel_gt_vec=None, use_gt_kernel=False, clip_sr=False, generator=None) ->
     {"sr": (B, 3, sH, sW), "kernel": (B, k_out^2), "seg": (B, 1, sH, sW), "aux": ...}
+
+`kernel_gt_vec` / `use_gt_kernel` are the GT-kernel window's inputs (KBPN);
+`generator` draws PSPNet's train-mode dropout masks.
 
 Only SR=KBPN with DETECTOR_TYPE=PSPNet is ported; the rest of the zoo waits
 in ROADMAP.md, queue 1.
@@ -13,22 +16,23 @@ import torch.nn as nn
 
 from .kbpn import KBPN
 from .pspnet import PSPNet
-from ..utils.device import compute_dtype, resolve_device
+from ..utils.device import compute_dtype, resolve_device, upcast
 
 
 def _norm_sr(sr: torch.Tensor, method: str, mean, std) -> torch.Tensor:
     """MetaSRModel.norm_sr: 'all' (dataset mean/std), 'instance' (per image
-    and channel, biased variance, eps 1e-5) or '' (none); float32 math."""
+    and channel, biased variance, eps 1e-5) or '' (none); float32 math
+    (float64 for a float64 sr)."""
+    if method not in ("all", "instance"):
+        return sr
+    x = upcast(sr)
     if method == "all":
-        m = torch.tensor(mean, dtype=torch.float32, device=sr.device).reshape(1, -1, 1, 1)
-        s = torch.tensor(std, dtype=torch.float32, device=sr.device).reshape(1, -1, 1, 1)
-        return ((sr.float() - m) / s).to(sr.dtype)
-    if method == "instance":
-        x = sr.float()
-        mu = x.mean(dim=(2, 3), keepdim=True)
-        var = x.var(dim=(2, 3), keepdim=True, correction=0)
-        return ((x - mu) / torch.sqrt(var + 1e-5)).to(sr.dtype)
-    return sr
+        m = torch.tensor(mean, dtype=x.dtype, device=sr.device).reshape(1, -1, 1, 1)
+        s = torch.tensor(std, dtype=x.dtype, device=sr.device).reshape(1, -1, 1, 1)
+        return ((x - m) / s).to(sr.dtype)
+    mu = x.mean(dim=(2, 3), keepdim=True)
+    var = x.var(dim=(2, 3), keepdim=True, correction=0)
+    return ((x - mu) / torch.sqrt(var + 1e-5)).to(sr.dtype)
 
 
 class CSBSRModel(nn.Module):
@@ -57,12 +61,13 @@ class CSBSRModel(nn.Module):
         )
         self.segmentation_model = PSPNet(num_classes, pspnet_backend, generator=generator)
 
-    def forward(self, x, clip_sr: bool = False):
-        sr, kernel_vec = self.sr_model(x, compute_dtype=self.dtype)
+    def forward(self, x, kernel_gt_vec=None, use_gt_kernel=False, clip_sr: bool = False,
+                generator=None):
+        sr, kernel_vec = self.sr_model(x, kernel_gt_vec, use_gt_kernel, compute_dtype=self.dtype)
         if clip_sr:
             sr = sr.clamp(0.0, 1.0)
         sr_norm = _norm_sr(sr, self.norm_sr_output, self.input_mean, self.input_std)
-        seg, aux = self.segmentation_model(sr_norm.to(self.dtype))
+        seg, aux = self.segmentation_model(sr_norm.to(self.dtype), generator)
         return {"sr": sr, "kernel": kernel_vec, "seg": seg, "aux": aux}
 
 

@@ -7,8 +7,8 @@ restructurings with identical math and param layout). Only the flagship
 variant is ported: SUM_LR_ERROR_POS=HR, no pixel shuffle, kernel SFT on,
 bicubic kernel upsampling (ZERO_PAD_KERNEL=False), 3 channels.
 
-Blur kernels flow as (B, k_out^2) vectors and stay float32; the feature
-maps run in the input's compute dtype. Tensors are NCHW.
+Blur kernels flow as (B, k_out^2) vectors and stay float32 (float64 in a
+float64 run); the feature maps run in the input's compute dtype. Tensors are NCHW.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from .blocks import ConvBlock, DeconvBlock, conv2d
 from ..ops.blur import batch_blur
 from ..ops.resize import resize
+from ..utils.device import upcast
 
 _CONV_SETTING = {2: (6, 2, 2), 4: (8, 4, 2), 8: (12, 8, 2)}
 
@@ -29,8 +30,9 @@ def normalize_kernel_vec(vec: torch.Tensor) -> torch.Tensor:
 
 
 def _resize_kernel_vec(vec: torch.Tensor, k_in: int, k_out: int) -> torch.Tensor:
-    """(B, k_in^2) -> bicubic -> (B, k_out^2), float32."""
-    k2d = vec.float().reshape(-1, 1, k_in, k_in)
+    """(B, k_in^2) -> bicubic -> (B, k_out^2), float32 (float64 for a
+    float64 vec)."""
+    k2d = upcast(vec).reshape(-1, 1, k_in, k_in)
     return resize(k2d, (k_out, k_out), method="bicubic").reshape(-1, k_out * k_out)
 
 
@@ -49,7 +51,7 @@ class PredictorWithGAP(nn.Module):
         ])
 
     def forward(self, x):
-        vec = self.feat_ext(x).float().mean(dim=(2, 3))
+        vec = upcast(self.feat_ext(x)).mean(dim=(2, 3))
         if self.ksize_output != self.estimate_ksize:
             vec = _resize_kernel_vec(vec, self.estimate_ksize, self.ksize_output)
         return normalize_kernel_vec(vec)
@@ -80,7 +82,7 @@ class KernelPredictorLikeIKC(nn.Module):
         b, _, h, w = sr.shape
         cond = pre_kernel_vec.to(fsr.dtype)[:, :, None, None].expand(b, -1, h, w)
         fh = self.fe_kernel(cond)
-        delta = self.fe_cat(torch.cat([fsr, fh], dim=1)).float().mean(dim=(2, 3))
+        delta = upcast(self.fe_cat(torch.cat([fsr, fh], dim=1))).mean(dim=(2, 3))
         if self.ksize_output != self.estimate_ksize:
             delta = _resize_kernel_vec(delta, self.estimate_ksize, self.ksize_output)
         return pre_kernel_vec + delta
@@ -152,7 +154,7 @@ class SFTLayerKBPN(nn.Module):
 
 class KBlock(nn.Module):
     """Kernel back-projection block, HR error mode: sr_t = sr_reconst(cat(hs));
-    refine the kernel (IKC); pseudo-LR = sr_t blurred by the normalised
+    refine the kernel (IKC) unless `use_gt_kernel`; pseudo-LR = sr_t blurred by the normalised
     kernel at stride SF; back-project the LR error through a deconv."""
 
     def __init__(self, num_filter, k, s, p, stage, estimate_ksize, ksize_output,
@@ -165,9 +167,11 @@ class KBlock(nn.Module):
         self.kernel_predictor = KernelPredictorLikeIKC(estimate_ksize, ksize_output, generator=g)
         self.up_conv1 = _prelu_block(DeconvBlock, 3, num_filter, k, s, p, generator=g)
 
-    def forward(self, concat_h, h, input_lr, kernel_vec):
+    def forward(self, concat_h, h, input_lr, kernel_vec, use_gt_kernel):
         sr_t = self.sr_reconst(concat_h)
-        kernel_vec = self.kernel_predictor(sr_t, kernel_vec)
+        refined = self.kernel_predictor(sr_t, kernel_vec)
+        # the GT-kernel window keeps the incoming kernel (reference kbpn.py:386-388)
+        kernel_vec = torch.where(use_gt_kernel, kernel_vec, refined)
         vec = normalize_kernel_vec(kernel_vec)
         weight = vec.reshape(-1, self.ksize_output, self.ksize_output)
         pseudo_lr = batch_blur(sr_t, weight, stride=self.scale_factor)
@@ -192,10 +196,14 @@ class KBPNStage(nn.Module):
 
 
 class KBPN(nn.Module):
-    """Dense KBPN. forward(lr) -> (sr, kernel_vec), with kernel_vec the
-    normalised (B, k_out^2) prediction; the IKC-refined kernel is used at
-    every stage, as at inference. The GT-kernel input of the SR-pretrain
-    window comes with the training slice."""
+    """Dense KBPN. forward(lr, kernel_gt_vec=None, use_gt_kernel=False) ->
+    (sr, kernel_vec), with kernel_vec the normalised (B, k_out^2) kernel.
+
+    `use_gt_kernel` is the GT-kernel window's flag (a bool or a 0-d bool
+    tensor): where it is set, the GT kernel replaces the predicted one and
+    every stage keeps it instead of the IKC-refined kernel. Both branches are
+    computed and one is selected with `torch.where`, as in the JAX package,
+    so one code path serves every phase."""
 
     def __init__(self, scale_factor=4, num_stages=4, md_ch=128, estimate_ksize=21,
                  ksize_output=21, kernel_sft=True, residual_learning=True,
@@ -226,13 +234,19 @@ class KBPN(nn.Module):
         self.output_conv = ConvBlock(num_stages * md_ch, 3, 3, 1, 1, activation=None,
                                      generator=g)
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
+    def forward(self, x: torch.Tensor, kernel_gt_vec=None, use_gt_kernel=False,
+                compute_dtype: torch.dtype = torch.float32):
+        use_gt = use_gt_kernel
+        if not isinstance(use_gt, torch.Tensor):  # a fill, not a host-to-device copy
+            use_gt = torch.full((), bool(use_gt), dtype=torch.bool, device=x.device)
         low = self.feat(x.to(compute_dtype))
         kernel_vec = self.predictor(low)
+        if kernel_gt_vec is not None:
+            kernel_vec = torch.where(use_gt, kernel_gt_vec.to(kernel_vec.dtype), kernel_vec)
         hs, lows = [], []
         for st, stage in enumerate(self.back_projection_stages, start=1):
             h = stage.up(low)
-            h, kernel_vec = stage.kb(torch.cat(hs + [h], dim=1), h, x, kernel_vec)
+            h, kernel_vec = stage.kb(torch.cat(hs + [h], dim=1), h, x, kernel_vec, use_gt)
             hs.append(h)
             if st < self.num_stages:
                 lows.append(stage.down(torch.cat(hs, dim=1)))
@@ -240,5 +254,5 @@ class KBPN(nn.Module):
         sr = self.output_conv(torch.cat(hs, dim=1))
         if self.residual_learning:
             out_hw = (x.shape[2] * self.scale_factor, x.shape[3] * self.scale_factor)
-            sr = sr + resize(x.float(), out_hw, method="bicubic").to(sr.dtype)
+            sr = sr + resize(x, out_hw, method="bicubic").to(sr.dtype)
         return sr, kernel_vec

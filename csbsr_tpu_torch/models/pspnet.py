@@ -4,8 +4,10 @@ ResNet-34 with layers 3/4 dilated (stride 1, dilation 2/4; the first block
 of each layer undilated), /8 in all; pyramid pooling (1, 2, 3, 6); three 2x
 bilinear-upsample conv stages; sigmoid main head plus an aux head on the
 layer-3 features. Only the resnet34 backend is ported. BatchNorm (eps 1e-5)
-uses its running statistics in eval; dropout is the identity in eval.
-Tensors are NCHW; attribute names are the reference's.
+uses its running statistics in eval and the batch's in train. Dropout, as in
+the JAX package: 0.3 after `psp`, 0.15 after each of `up_1`, `up_2`,
+`up_3`, 0.1 inside the aux head; the identity in eval. Tensors are NCHW;
+attribute names are the reference's.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BatchNorm2d, PReLU, conv2d
+from .blocks import BatchNorm2d, Dropout, PReLU, conv2d
 from ..ops.resize import adaptive_avg_pool, resize
 
 
@@ -101,7 +103,8 @@ class PSPUpsample(nn.Module):
 
 
 class PSPNet(nn.Module):
-    """forward(x) -> (main_sigmoid, aux_sigmoid), both at the input size."""
+    """forward(x, generator=None) -> (main_sigmoid, aux_sigmoid), both at the
+    input size; `generator` draws the train-mode dropout masks."""
 
     def __init__(self, n_classes=1, backend="resnet34", generator=None):
         super().__init__()
@@ -116,17 +119,24 @@ class PSPNet(nn.Module):
         self.up_1 = PSPUpsample(1024, 256, generator=g)
         self.up_2 = PSPUpsample(256, 64, generator=g)
         self.up_3 = PSPUpsample(64, 64, generator=g)
+        # no params: the state-dict keys are those of the reference
+        self.drop_psp, self.drop_1 = Dropout(0.3), Dropout(0.15)
+        self.drop_2, self.drop_3 = Dropout(0.15), Dropout(0.15)
         self.final = nn.Sequential(conv2d(64, n_classes, 1, generator=g), nn.Sigmoid())
         self.aux = nn.Sequential(
             conv2d(256, 256, 3, padding=1, bias=False, generator=g), BatchNorm2d(256),
-            nn.ReLU(), nn.Dropout(0.1), conv2d(256, n_classes, 1, generator=g), nn.Sigmoid(),
+            nn.ReLU(), Dropout(0.1), conv2d(256, n_classes, 1, generator=g), nn.Sigmoid(),
         )
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h, w = x.shape[2:]
         f, aux_f = self.feats(x)
-        p = self.psp(f)
-        p = self.up_3(self.up_2(self.up_1(p)))
+        p = self.drop_psp(self.psp(f), generator)
+        p = self.drop_1(self.up_1(p), generator)
+        p = self.drop_2(self.up_2(p), generator)
+        p = self.drop_3(self.up_3(p), generator)
         main = self.final(p)
-        aux = resize(self.aux(aux_f), (h, w), method="bilinear", align_corners=True)
+        for layer in self.aux:
+            aux_f = layer(aux_f, generator) if isinstance(layer, Dropout) else layer(aux_f)
+        aux = resize(aux_f, (h, w), method="bilinear", align_corners=True)
         return main, aux

@@ -9,6 +9,11 @@
           version on the CPU).
 
 Equals `scipy.ndimage.distance_transform_edt(~mask)` per 2-D slice.
+
+`signed_distance_map` and `sdf_normalized` (the boundary loss's target SDF)
+take two EDTs each, so two launches of the row-pass kernel on the card. They
+run under `torch.no_grad()`: the JAX package stops the SDF's gradient, and
+the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 
 from .minplus import BIG, minplus_rows
 
-__all__ = ["edt", "find_boundaries_inner"]
+__all__ = ["edt", "find_boundaries_inner", "signed_distance_map", "sdf_normalized"]
 
 
 def _column_distance(mask: torch.Tensor) -> torch.Tensor:
@@ -50,3 +55,37 @@ def find_boundaries_inner(mask: torch.Tensor) -> torch.Tensor:
     up, down = p[..., :-2, 1:-1], p[..., 2:, 1:-1]
     left, right = p[..., 1:-1, :-2], p[..., 1:-1, 2:]
     return m & ~(up & down & left & right)
+
+
+def _any_true(m: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) bool -> (..., 1, 1): whether the slice has a True pixel."""
+    return m.flatten(-2).any(-1)[..., None, None]
+
+
+@torch.no_grad()
+def signed_distance_map(mask: torch.Tensor, row_pass=minplus_rows) -> torch.Tensor:
+    """Unnormalised SDM, negdist - posdist (reference `compute_sdf`); zero
+    for a slice with no True pixel."""
+    m = mask.to(torch.bool)
+    posdis, negdis = edt(m, row_pass), edt(~m, row_pass)
+    return torch.where(_any_true(m), negdis - posdis, 0.0)
+
+
+@torch.no_grad()
+def sdf_normalized(mask: torch.Tensor, row_pass=minplus_rows) -> torch.Tensor:
+    """Normalised SDF in [-1, 1] (reference `compute_sdf1_1`):
+    norm01(distance to the background) - norm01(distance to the mask), zero
+    on the inner boundary and for a slice with no True pixel. mask (..., H, W)."""
+    m = mask.to(torch.bool)
+    any_pos = _any_true(m)
+    posdis = torch.where(any_pos, edt(~m, row_pass), 0.0)
+    negdis = torch.where(any_pos, edt(m, row_pass), 0.0)
+
+    def norm01(d):
+        dmin = d.amin(dim=(-2, -1), keepdim=True)
+        dmax = d.amax(dim=(-2, -1), keepdim=True)
+        return (d - dmin) / torch.where(dmax > dmin, dmax - dmin, 1.0)
+
+    sdf = norm01(negdis) - norm01(posdis)
+    sdf = torch.where(find_boundaries_inner(m), 0.0, sdf)
+    return torch.where(any_pos, sdf, 0.0)

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import upcast
+
 __all__ = ["resize", "adaptive_avg_pool"]
 
 
@@ -26,12 +28,10 @@ def resize(x: torch.Tensor, out_hw, method: str = "bicubic",
         return x
     if method not in ("bicubic", "bilinear"):
         raise NotImplementedError(method)
-    xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
-    out = F.interpolate(xf, size=out_hw, mode=method, align_corners=align_corners)
+    out = F.interpolate(upcast(x), size=out_hw, mode=method, align_corners=align_corners)
     return out.to(x.dtype)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     """torch.nn.AdaptiveAvgPool2d in float32, result in the input's dtype."""
-    xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
-    return F.adaptive_avg_pool2d(xf, tuple(out_hw)).to(x.dtype)
+    return F.adaptive_avg_pool2d(upcast(x), tuple(out_hw)).to(x.dtype)

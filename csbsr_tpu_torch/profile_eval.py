@@ -63,18 +63,28 @@ def main():
         rows, _, _ = score_for_ss(cfg, model, data, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = IMAGES
+    print(json.dumps({
+        "images": IMAGES, "image_hw": [SIZE, SIZE],
+        "wall_s_per_image": wall / IMAGES, "images_per_s": IMAGES / wall,
+        "host_s_per_image_rows": [r["seconds"] for r in rows],
+        **summarize(prof, RANGES, IMAGES, wall, "image"),
+    }))
 
-    ranges = {r: {"device_ms": 0.0, "host_ms": 0.0} for r in RANGES}
+
+def summarize(prof, ranges, n, wall, unit):
+    """The card, the device time per `unit` (n of them in `wall` seconds) in
+    each named range and by kernel class, the top kernels and the device's
+    busy and idle shares of the wall time."""
+    per = {r: {"device_ms": 0.0, "host_ms": 0.0} for r in ranges}
     for evt in prof.events():
-        if evt.name in ranges and evt.device_type == DeviceType.CPU:
-            ranges[evt.name]["device_ms"] += evt.device_time_total / 1e3 / n
-            ranges[evt.name]["host_ms"] += evt.cpu_time_total / 1e3 / n
+        if evt.name in per and evt.device_type == DeviceType.CPU:
+            per[evt.name]["device_ms"] += evt.device_time_total / 1e3 / n
+            per[evt.name]["host_ms"] += evt.cpu_time_total / 1e3 / n
 
     kernels, classes, total_us = [], {}, 0.0
     for evt in prof.key_averages():
         us = float(evt.self_device_time_total)
-        if us <= 0 or evt.device_type != DeviceType.CUDA or evt.key in RANGES:
+        if us <= 0 or evt.device_type != DeviceType.CUDA or evt.key in per:
             continue  # host ops and the ranges' device-side spans: their kernels count
         total_us += us
         cls = _class_of(evt.key)
@@ -85,18 +95,14 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     busy = total_us / 1e6 / wall
-    print(json.dumps({
-        "card": card, "images": n, "image_hw": [SIZE, SIZE],
-        "wall_s_per_image": wall / n, "images_per_s": n / wall,
-        "host_s_per_image_rows": [r["seconds"] for r in rows],
-        "device_ms_per_image": total_us / 1e3 / n,
+    return {
+        "card": card, f"device_ms_per_{unit}": total_us / 1e3 / n,
         "device_busy_share": busy, "device_idle_share": 1.0 - busy,
-        "ranges_per_image": ranges,
-        "kernel_classes_ms_per_image": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": k[:120], "ms_per_image": us / 1e3 / n, "calls_per_image": c / n}
-                        for us, k, c in kernels[:15]],
-    }))
-
+        f"ranges_per_{unit}": per,
+        f"kernel_classes_ms_per_{unit}": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": k[:120], f"ms_per_{unit}": us / 1e3 / n,
+                         f"calls_per_{unit}": c / n} for us, k, c in kernels[:15]],
+    }
 
 if __name__ == "__main__":
     main()

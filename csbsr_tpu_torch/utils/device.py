@@ -25,6 +25,12 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[str(cfg.TPU.COMPUTE_DTYPE)]
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, the accumulation dtype of the bf16 compute path; a
+    float32 or float64 tensor as it is, so that a float64 run stays float64."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
 @contextlib.contextmanager
 def full_fp32():
     """Run float32 convolutions and matmuls in full float32, not TF32.
