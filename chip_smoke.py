@@ -7,13 +7,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
   1. env        the card (nvidia-smi name and power limit, also printed raw),
                 torch/CUDA versions, which optional packages import;
-  2. build      the kernel csbsr_tpu_torch/csrc/minplus.cu, with nvcc, into
-                build/;
-  3. kernels    each kernel against its plain PyTorch version on the card at
-                the shapes of the main path (min-plus: torch.equal), plus the
-                EDT against a brute-force distance on a small mask; kernel
-                and plain-version times with CUDA events;
-  4. main path  evaluation: the flagship recipe (config/flagship.py: KBPN 4
+  2. build      csbsr_tpu_torch/csrc/minplus.cu (the kernel) and rates.cu
+                (dispatch-rate microkernels) into build/, one nvcc each, started
+                together;
+  3. rates      the card's measured rates, per SM per clock, of FMNMX, FADD,
+                FFMA, DPX VIADDMNMX and VIMNMX3, of the three min-type
+                instructions interleaved (they must share one pipe, as the
+                bound assumes) and of two candidate mixes (ops/rates.py),
+                with the SASS opcodes cuobjdump shows; they define the
+                min-plus kernel's operations bound, the best mix of exact
+                routes under the dispatch rate and the pipes' rates;
+  4. kernels    each kernel against its plain PyTorch version on the card at
+                the shapes of the main path and the edges of its launch plan
+                (min-plus: torch.equal), plus the EDT against a brute-force
+                distance on a small mask; at the three main-path shapes
+                (99, 449, 449), (1, 449, 449) and (6, 1, 224, 224) the
+                kernel's and the plain version's device times (CUDA events,
+                the launch queued behind a sleep on the card), the kernel's
+                duration in a profiler trace, and that of a launch with an
+                empty k range (its fixed cost), beside the bound from the
+                measured rates;
+  5. main path  evaluation: the flagship recipe (config/flagship.py: KBPN 4
                 stages x4, md 128, kernel 7 -> 21, PSPNet-ResNet34, IMAGE_SIZE
                 224, bf16 compute) with random weights from a seed, scoring 8
                 synthetic 448x448 crack images made on the card
@@ -23,7 +37,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 again with the plain row pass, which must agree exactly, and
                 the model in float32 on the card against the same weights on
                 the host CPU on one patch (relative error <= 1e-3);
-  5. train      training: the flagship recipe at batch 6 on 224x224 crops
+  6. train      training: the flagship recipe at batch 6 on 224x224 crops
                 of the port's synthetic set and loader, random init from the
                 seed, through the train step of engine/trainer.do_train: 3
                 warm-up and 10 timed steps from iteration 1 (GT-kernel
@@ -47,7 +61,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -64,7 +77,15 @@ LATE_ITERATIONS = (10001, 30001)  # kernel window, joint phase
 CPU_CHECK_BATCH = 2  # samples of the card-vs-CPU train step
 FLOAT64_LOSS_TOL, FLOAT64_GRAD_TOL = 1e-9, 1e-6  # card vs CPU in float64
 FLOAT32_ENVELOPE, FLOAT32_FLOOR = 10.0, 1e-4  # card vs CPU in float32, per grad group
-MEM_BW = 3.35e12  # H100 SXM device memory, bytes/s (NVIDIA data sheet)
+BUILT = ("minplus", "rates")  # csbsr_tpu_torch/csrc/<name>.cu
+# min-plus checks, (shape, mask density): the main paths' shapes, the edges
+# of the launch plan (one row, ragged row groups and column groups, a split
+# k, the widest row) and all-empty slices (the 1e9 cap)
+CHECK_SHAPES = (((2, 1, 33, 47), 0.02), ((3, 128, 128), 0.02), ((2, 33, 2100), 0.02),
+                ((1, 40, 50), 0.0), ((99, 449, 449), 0.02), ((1, 449, 449), 0.02),
+                ((6, 1, 224, 224), 0.02), ((6, 1, 224, 224), 0.0), ((1, 1, 1), 0.5),
+                ((7, 31), 0.1), ((9, 33), 0.1), ((3, 2896), 0.01), ((64, 2896), 0.01))
+TIMED_SHAPES = ((99, 449, 449), (1, 449, 449), (6, 1, 224, 224))  # HD bank, GT border, SDF
 
 
 def emit(obj):
@@ -97,28 +118,40 @@ def phase_env():
 
 
 def phase_build():
-    from csbsr_tpu_torch.ops import cuda_build, minplus
+    from csbsr_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.load(minplus._NAME, "csbsr_minplus_rows", minplus._ARGTYPES)
-    emit({"phase": "build", "kernels": [minplus._NAME], "seconds": time.perf_counter() - t0,
-          "ptxas": {k: [l for l in v.splitlines() if "registers" in l or "smem" in l]
+    cuda_build.build(*BUILT)
+    emit({"phase": "build", "sources": [f"csbsr_tpu_torch/csrc/{n}.cu" for n in BUILT],
+          "seconds": time.perf_counter() - t0,
+          "ptxas": {k: [l for l in v.splitlines() if "registers" in l or "spill" in l]
                     for k, v in cuda_build.BUILD_REPORTS.items()}})
 
 
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median over `reps` single calls, each bracketed by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def phase_rates(dev):
+    """The card's rates, which define the min-plus bound; returns (rates,
+    SM count, max SM clock in Hz)."""
+    from csbsr_tpu_torch.ops import rates
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    measured = rates.measure(dev, clock_hz)
+    min_ops = [measured[op] for op in rates.PIPES["min"]]
+    if measured["minmix"] > 1.1 * max(min_ops):
+        raise AssertionError(f"FMNMX, VIADDMNMX and VIMNMX3 interleaved run at "
+                             f"{measured['minmix']:.1f} per SM per clock, faster than each alone "
+                             f"({min_ops}): they do not share one pipe, as the bound assumes")
+    per_clock, mix = rates.candidate_rate(measured)
+    opcodes = {}
+    for name in BUILT:  # the opcodes each kernel became, most frequent first
+        for fn, counts in rates.sass_opcodes(name).items():
+            opcodes[fn] = dict(counts.most_common(6))
+    emit({"phase": "rates", "per_sm_per_clock": measured, "sm_count": sms,
+          "sm_clock_max_hz": clock_hz, "dispatch_rate": rates.DISPATCH_RATE,
+          "route_clocks_per_candidate": {r: rates.route_cost(r, measured) for r in rates.ROUTES},
+          "best_mix_candidates_per_sm_per_clock": per_clock, "best_mix": mix,
+          "sass_opcodes": opcodes})
+    return measured, sms, clock_hz
 
 
 def _brute_edt(mask):
@@ -131,25 +164,24 @@ def _brute_edt(mask):
     return np.sqrt(d2.min(-1))
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, measured, sms, clock_hz):
     from csbsr_tpu_torch.ops.edt import _column_distance, edt
-    from csbsr_tpu_torch.ops.minplus import minplus_rows, minplus_rows_reference
+    from csbsr_tpu_torch.ops.minplus import launch_plan, minplus_rows, minplus_rows_reference
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    shapes = [(2, 1, 33, 47), (3, 128, 128), (2, 33, 2100), (1, 40, 50), (99, 449, 449)]
     checks, max_err = [], 0.0
-    for shape in shapes:
-        if shape == (1, 40, 50):  # an all-False slice: the 1e9 cap
-            mask = torch.zeros(shape, dtype=torch.bool, device=dev)
-        else:
-            mask = torch.rand(shape, generator=gen, device=dev) < 0.02
+    for shape, density in CHECK_SHAPES:
+        mask = torch.rand(shape, generator=gen, device=dev) < density
         g = _column_distance(mask).contiguous()
         out, ref = minplus_rows(g), minplus_rows_reference(g)
         torch.cuda.synchronize()
         equal = torch.equal(out, ref)
         err = float((out - ref).abs().max())
         max_err = max(max_err, err)
-        checks.append({"shape": list(shape), "equal": equal, "max_abs_err": err})
+        plan = launch_plan(g.numel() // shape[-1], shape[-1], sms)
+        checks.append({"shape": list(shape), "density": density, "equal": equal,
+                       "max_abs_err": err, "split": plan.split, "threads": plan.threads,
+                       "blocks": plan.blocks})
         if not equal:
             raise AssertionError(f"minplus kernel != plain version at {shape}: {err}")
 
@@ -161,20 +193,23 @@ def phase_kernels(dev):
     if edt_err > 1e-5:
         raise AssertionError(f"EDT disagrees with brute force: {edt_err}")
 
-    # timing at the HD-bank shape of one 448x448 image: (99, 449, 449)
-    g = _column_distance(torch.rand((99, 449, 449), generator=gen, device=dev) < 0.02)
-    props = torch.cuda.get_device_properties(dev)
-    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    bank = _time_minplus(g.contiguous(), props, clock_hz, reps=25)
+    # the three shapes of the main paths, on the column pass of a 2% mask
+    by_shape = []
+    for shape in TIMED_SHAPES:
+        g = _column_distance(torch.rand(shape, generator=gen, device=dev) < 0.02).contiguous()
+        by_shape.append(_time_minplus(g, measured, sms, clock_hz))
+    bank = by_shape[0]
     entry = {
         "name": "minplus_rows", "route": "cuda", "source": "csbsr_tpu_torch/csrc/minplus.cu",
         "replaces": "csbsr_tpu/ops/pallas/minplus.py:68", "launches": None,
         "max_abs_err": max_err, "ms": bank["ms"], "plain_ms": bank["plain_ms"],
         "bound_ms": bank["bound_ms"], "bound_by": bank["bound_by"], "library_ms": None,
+        "shape": bank["shape"],
+        "by_shape": [{k: r[k] for k in ("shape", "ms", "trace_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "share_of_bound")} for r in by_shape],
     }
     emit({"phase": "kernels", "minplus_checks": checks, "edt_vs_bruteforce_max_err": edt_err,
-          "sm_count": props.multi_processor_count, "sm_clock_max_hz": clock_hz,
-          "minplus_bank_shape": bank, "minplus": entry})
+          "minplus_by_shape": by_shape, "minplus": entry})
     return [entry]
 
 
@@ -242,21 +277,23 @@ def phase_main_path(dev):
     return launches
 
 
-def _time_minplus(g, props, clock_hz, reps):
-    """Kernel and plain-version ms on `g`, and the bound of the work."""
-    from csbsr_tpu_torch.ops.minplus import minplus_rows, minplus_rows_reference
+def _time_minplus(g, measured, sms, clock_hz):
+    """Kernel and plain-version device ms on `g`, the kernel's trace time
+    and that of the same launch with an empty k range (staging, barriers,
+    stores), and the bound of the work from the measured rates."""
+    from csbsr_tpu_torch.bench_minplus import device_ms, trace_ms
+    from csbsr_tpu_torch.ops.minplus import (launch, launch_plan, minplus_rows,
+                                             minplus_rows_reference)
+    from csbsr_tpu_torch.ops.rates import minplus_bound
 
-    ms = _time_ms(lambda: minplus_rows(g), reps=reps, warmup=3)
-    plain_ms = _time_ms(lambda: minplus_rows_reference(g), reps=5, warmup=1)
-    rows, w = g.numel() // g.shape[-1], g.shape[-1]
-    # one fused multiply-add and one min per candidate (r, j, k), issued on
-    # 128 FP32 lanes per SM per clock
-    ops_ms = 2.0 * rows * w * w / (props.multi_processor_count * 128 * clock_hz) * 1e3
-    bytes_ms = 2.0 * g.numel() * 4 / MEM_BW * 1e3  # g read once, out written once
-    return {"shape": list(g.shape), "candidates": rows * w * w, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms}
+    ms = device_ms(lambda: minplus_rows(g), reps=25)
+    plain_ms = device_ms(lambda: minplus_rows_reference(g), reps=5, warmup=1)
+    plan = launch_plan(g.numel() // g.shape[-1], g.shape[-1], sms)
+    bound = minplus_bound(tuple(g.shape), measured, sms, clock_hz)
+    return {"shape": list(g.shape), "ms": ms, "plain_ms": plain_ms,
+            "trace_ms": trace_ms(lambda: minplus_rows(g), reps=25),
+            "empty_k_trace_ms": trace_ms(lambda: launch(g, plan._replace(kslice=0)), reps=25),
+            **bound, "share_of_bound": bound["bound_ms"] / ms}
 
 
 def phase_train(dev):
@@ -269,7 +306,7 @@ def phase_train(dev):
     from csbsr_tpu_torch.engine.trainer import build_train_step, do_train
     from csbsr_tpu_torch.models import model_from_cfg
     from csbsr_tpu_torch.ops import cuda_build
-    from csbsr_tpu_torch.ops.edt import _column_distance, sdf_normalized
+    from csbsr_tpu_torch.ops.edt import sdf_normalized
     from csbsr_tpu_torch.ops.minplus import minplus_rows_reference
     from csbsr_tpu_torch.train import build_datasets, split_and_eval_batches
 
@@ -351,9 +388,6 @@ def phase_train(dev):
     mask = first["seg"] > 0.5
     if not torch.equal(sdf_normalized(mask), sdf_normalized(mask, minplus_rows_reference)):
         raise AssertionError("train SDF differs between the kernel and the plain row pass")
-    props = torch.cuda.get_device_properties(dev)
-    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    train_shape = _time_minplus(_column_distance(mask).contiguous(), props, clock_hz, reps=50)
 
     cpu_check = check_train_step_against_cpu(model, cfg, pc, first)
     timed = step_s[TRAIN_WARMUP:]
@@ -365,8 +399,8 @@ def phase_train(dev):
           "images_per_s_after_warmup": b * len(timed) / sum(timed), "step_s": step_s,
           "peak_mem_gb": peak_gb, "launches": launches, "minplus_launches_per_step": per_step,
           "losses": losses, "late_iterations": late, "sdf_plain_row_pass_equal": True,
-          "minplus_train_shape": train_shape, "float32_vs_cpu": cpu_check})
-    return launches, train_shape
+          "float32_vs_cpu": cpu_check})
+    return launches
 
 
 def _step_grads(model, weights, batch, phase, dtype, loss_fn):
@@ -539,16 +573,14 @@ def main():
     dev = torch.device("cuda", 0)
     phase_env()
     phase_build()
-    kernels = phase_kernels(dev)
+    measured, sms, clock_hz = phase_rates(dev)
+    kernels = phase_kernels(dev, measured, sms, clock_hz)
     eval_launches = phase_main_path(dev)
-    train_launches, train_shape = phase_train(dev)
+    train_launches = phase_train(dev)
     for k in kernels:
         by_path = {"eval": eval_launches.get(k["name"], 0),
                    "train": train_launches.get(k["name"], 0)}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    # the min-plus kernel at the training shape, beside the bank shape's numbers
-    kernels[0]["train_shape"] = {key: train_shape[key] for key in
-                                 ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

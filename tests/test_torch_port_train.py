@@ -237,6 +237,100 @@ def test_float64_train_step_equals_jax_float64(parity):
         assert worst[0] <= 1e-9, (it, worst)
 
 
+FLOAT32_SIZE, FLOAT32_STAGES = 64, 2  # a size where the port's float32 error reaches 1e-2
+FLOAT32_INSTANCES = ((9, 12), (1, 3))  # (weight seed, batch seed)
+
+
+def test_float32_joint_phase_gradient_loses_no_more_than_the_jax_package():
+    """The float32 conditioning of the joint phase (iteration 6, alpha 0.4),
+    held against the JAX package's own float32 step at image 64 (2 stages),
+    a size where the port's float32 gradient is up to 1.7% off float64 in
+    relative L2, as at full width on the card. Both packages' float32
+    gradients are held to the package's float64 one (scoped x64) on two
+    weight and batch instances. The error of each package depends on the
+    instance, by up to 11x between the two; measured on the CPU,
+    SR_CORE/KERNEL/SEG: the port 1.66e-2/1.57e-3/1.30e-2 and
+    2.9e-3/1.4e-4/3.0e-3, the package 6.6e-3/5.2e-4/5.4e-3 and
+    2.20e-2/1.26e-3/1.46e-2. Per group, the port's worst error over the
+    instances must stay within PORT_FACTOR of the package's worst, and for
+    SR_CORE and SEG above 5e-3, so that this size shows the effect: the
+    ill-conditioning is the reference's too, not a fault of the port."""
+    import flax.linen as fnn
+
+    from csbsr_tpu.models import model_from_cfg as jax_model_from_cfg
+
+    port_factor = 2.0
+    it, b = ITERATIONS[-1], 2
+    worst = {}
+    steps = {}
+    for seed, batch_seed in FLOAT32_INSTANCES:
+        jcfg, cfg, _, variables, model = joint_models(FLOAT32_SIZE, FLOAT32_STAGES, seed=seed)
+        for c in (jcfg, cfg):
+            c.merge_from_list(WINDOWS)
+        batch = _batch(hw=FLOAT32_SIZE, seed=batch_seed)
+        phase = jax_compute_phase(it, jax_phase_config(jcfg, NUM_TRAIN))
+        loss_j = jax_build_loss_fn(jcfg)
+
+        def grad_fn(dtype):
+            jm = jax_model_from_cfg(jcfg, dtype=dtype)
+
+            def _loss(p, stats, jb):
+                out, _ = jm.apply({"params": p, "batch_stats": stats}, jb["lr"],
+                                  jb["kernel"].reshape(b, -1), phase["use_gt_kernel"],
+                                  sr_targets=jb["hr"], train=True, mutable=["batch_stats"],
+                                  rngs={"dropout": jax.random.PRNGKey(0)})
+                return loss_j(out, jb, phase)["total"]
+
+            return jax.jit(jax.grad(_loss))
+
+        f64 = lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **kw: x)
+            with jax.enable_x64(True):
+                # the boundary loss's SDF in float32, as outside x64 (see parity)
+                sdf = jax_seg_losses.sdf_normalized
+                mp.setattr(jax_seg_losses, "sdf_normalized",
+                           lambda m: sdf(m).astype(jnp.float32))
+                if "64" not in steps:
+                    steps["64"] = grad_fn(jnp.float64)
+                grads64 = jax.device_get(steps["64"](f64(variables["params"]),
+                                                     f64(variables["batch_stats"]), f64(batch)))
+                mp.setattr(jax_seg_losses, "sdf_normalized", sdf)
+            if "32" not in steps:
+                steps["32"] = grad_fn(jnp.float32)
+            jax32 = state_dict_from_jax(jax.device_get(
+                steps["32"](variables["params"], variables["batch_stats"], batch)))
+        # the float64 reference crosses as a float32 pair, hi + lo
+        hi = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), grads64)
+        lo = jax.tree_util.tree_map(lambda a, h: np.asarray(np.asarray(a) - h, np.float32),
+                                    grads64, hi)
+        hi, lo = state_dict_from_jax(hi), state_dict_from_jax(lo)
+        exact = {n: hi[n].double() + lo[n].double() for n in hi}
+
+        tb = {k: nchw(v) if v.ndim == 4 else torch.from_numpy(v) for k, v in batch.items()}
+        _dropout_off(model.train())
+        ph = compute_phase(it, phase_config_from_cfg(cfg, NUM_TRAIN))
+        out = model(tb["lr"], tb["kernel"].reshape(b, -1), ph["use_gt_kernel"])
+        build_loss_fn(cfg)(out, tb, ph)["total"].backward()
+        port32 = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                  for n, p in model.named_parameters()}
+        groups = grad_group_ids(port32.items())
+
+        def rel_l2(grads, gid):
+            names = [n for n in exact if groups[n] == gid]
+            diff = sum(float((grads[n].double() - exact[n]).square().sum()) for n in names)
+            return (diff / sum(float(exact[n].square().sum()) for n in names)) ** 0.5
+
+        for name, gid in (("SR_CORE", SR_CORE), ("KERNEL", KERNEL), ("SEG", SEG)):
+            port_err, jax_err = rel_l2(port32, gid), rel_l2(jax32, gid)
+            prev = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(prev[0], port_err), max(prev[1], jax_err))
+    for name, (port_err, jax_err) in worst.items():
+        assert port_err <= port_factor * jax_err, (name, worst)
+        if name != "KERNEL":
+            assert port_err > 5e-3, (name, worst)
+
+
 def _phase_cfgs(**extra):
     jcfg = tiny_cfg(**extra)
     from csbsr_tpu_torch.config import get_cfg_defaults
