@@ -195,7 +195,8 @@ def inference_for_ss(cfg, model, dataset, *, output_dir: str, device=None,
 
         def on_image(fname, sr_pred, seg_pred, k2d):
             save_img(output_dir, sr_pred.cpu().numpy(), [fname])
-            save_kernel(output_dir, k2d[:1].cpu().numpy(), [fname])
+            if cfg.MODEL.SR == "KBPN":  # the one SR net that predicts a kernel
+                save_kernel(output_dir, k2d[:1].cpu().numpy(), [fname])
             seg_np = seg_pred.cpu().numpy()
             for idx in save_idx:
                 save_mask(output_dir, (seg_np > thresholds[idx]).astype(np.float32), [fname],

@@ -9,12 +9,16 @@ the JAX package; tensors are NCHW.
 The boundary term's SDF is of the target mask alone, which the main and the
 aux loss share, so it is computed once per call: two EDTs, two launches of
 the min-plus kernel per train step (the JAX package computes it for each of
-the two losses).
+the two losses). CrackFormer's aux output is its five side maps, scored
+against the target broadcast to them and scaled by their count; the SDF of
+that broadcast target is the broadcast of the one SDF, so its steps also
+launch the kernel twice.
 
 Ported branches: every seg loss but CrackFormerLoss, the KBPN/L1/L2 SR
-losses, the aux-loss combination, the oriented weights, the joint/staged
-combiner and the pretrain-window overrides. DSRL, SR_SEG_INV, ONLY_IMAGES,
-CrackFormer and SCALE_FACTOR 1 / bicubic SR raise.
+losses, the aux-loss combination (CrackFormer's side maps too), the
+oriented weights, the joint/staged combiner and the pretrain-window
+overrides. DSRL, SR_SEG_INV, ONLY_IMAGES and SCALE_FACTOR 1 / bicubic SR
+raise.
 """
 from __future__ import annotations
 
@@ -74,8 +78,6 @@ def build_loss_fn(cfg) -> Callable:
         raise _not_ported("MODEL.SR_SEG_INV")
     if cfg.DATASET.ONLY_IMAGES:
         raise _not_ported("SR-only pretraining (DATASET.ONLY_IMAGES)")
-    if cfg.MODEL.DETECTOR_TYPE == "CrackFormer":
-        raise _not_ported("the CrackFormer side-map loss")
     if cfg.MODEL.SCALE_FACTOR == 1 or cfg.MODEL.SR in ("bicubic", "none"):
         raise _not_ported("training without an SR network")
     seg_loss_fn, seg_per_pixel = build_seg_loss(cfg)
@@ -100,6 +102,7 @@ def build_loss_fn(cfg) -> Callable:
     interm_ss4sr = bool(cfg.SOLVER.INTERM_SSLOSSWEGHT4SR)
     joint = bool(cfg.MODEL.JOINT_LEARNING)
     downscale_method = cfg.SOLVER.DOWNSCALE_INTERPOLATION
+    side_maps = cfg.MODEL.DETECTOR_TYPE == "CrackFormer"
 
     def _co_weight(tgt):
         if w_variant == "linear":
@@ -121,7 +124,14 @@ def build_loss_fn(cfg) -> Callable:
         sdf = boundary_sdf(seg_targets) if needs_sdf else None
         seg_loss = seg_loss_fn(seg_preds, seg_targets, alpha, sdf)
         if outputs.get("aux") is not None:
-            aux_loss = seg_loss_fn(outputs["aux"].to(acc), seg_targets, alpha, sdf)
+            aux = outputs["aux"].to(acc)
+            if side_maps:  # the target and its SDF broadcast to the side maps
+                n = aux.shape[1]
+                aux_loss = seg_loss_fn(aux, seg_targets.expand_as(aux), alpha,
+                                       None if sdf is None else sdf.expand_as(aux))
+                aux_loss = tuple(n * a for a in aux_loss) if seg_per_pixel else n * aux_loss
+            else:
+                aux_loss = seg_loss_fn(aux, seg_targets, alpha, sdf)
             if seg_per_pixel:  # (paired, cross) pairs, combined factor by factor
                 seg_loss = tuple(main_w * m + aux_w * a for m, a in zip(seg_loss, aux_loss))
             else:

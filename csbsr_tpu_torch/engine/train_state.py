@@ -45,10 +45,12 @@ def grad_group_ids(named_params) -> Dict[str, int]:
     return groups
 
 
-def group_multipliers(phase: Dict, pc: PhaseConfig) -> List[float]:
+def group_multipliers(phase: Dict, pc: PhaseConfig, blurskip_only: bool = False) -> List[float]:
     """The phase's 0/1 multiplier of each group, [SR_CORE, KERNEL, SEG,
-    BLURSKIP]. (The JAX package's BlurSkip fine-tuning, everything frozen
-    but blur_skip, comes with the PSPNet_BlurSkip heads: ROADMAP.md.)"""
+    BLURSKIP]. `blurskip_only` (the PSPNet_BlurSkip detectors' fine-tune):
+    everything frozen but the blur_skip ladder, at every iteration."""
+    if blurskip_only:
+        return [0.0, 0.0, 0.0, 1.0]
     m_sr = 0.0 if phase["in_kernel_window"] else 1.0
     m_kernel = 0.0 if phase["use_gt_kernel"] else 1.0
     m_seg = 1.0

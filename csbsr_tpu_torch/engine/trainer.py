@@ -37,6 +37,7 @@ import torch
 from torch.profiler import record_function
 
 from ..metrics.device_metrics import iou_thresholds, psnr, ssim
+from ..models.build import BLURSKIP_TYPES
 from ..ops.blur import degrade, identity_kernels, make_kernel_sampler
 from ..utils.device import full_fp32
 from .losses_glue import build_loss_fn
@@ -81,6 +82,7 @@ def build_train_step(cfg, pc):
     loss_fn = build_loss_fn(cfg)
     degrade_fn = make_degrade_fn(cfg)
     seed = int(cfg.SEED)
+    blurskip_only = cfg.MODEL.DETECTOR_TYPE in BLURSKIP_TYPES
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
         it = state.step + 1
@@ -103,7 +105,7 @@ def build_train_step(cfg, pc):
                 model.zero_grad(set_to_none=True)
                 losses["total"].backward()
         with record_function("train.optimizer"):
-            state.optimizer.step(group_multipliers(phase, pc))
+            state.optimizer.step(group_multipliers(phase, pc, blurskip_only))
         state.step = it
         return {"loss": losses["total"].detach(), "seg_loss": losses["seg_loss"].detach(),
                 "sr_loss": losses["sr_loss"].detach(), "alpha": phase["alpha"]}
@@ -114,9 +116,11 @@ def build_train_step(cfg, pc):
 def build_eval_step(cfg, model):
     """-> eval_step(batch) -> (metrics, outputs): forward in eval (running
     BN statistics, no dropout) with clipped SR; per-sample PSNR/SSIM of the
-    SR, IoU at 0.5 and the PSNR of the clipped sum-1 kernel against the GT
-    kernel. batch holds "lr" and "kernel"."""
+    SR, IoU at 0.5 and, for KBPN (the one SR net that predicts a kernel),
+    the PSNR of the clipped sum-1 kernel against the GT kernel. batch holds
+    "lr" and "kernel"."""
     ksize = int(cfg.BLUR.KERNEL_SIZE_OUTPUT)
+    has_kernel = cfg.MODEL.SR == "KBPN"
 
     @torch.inference_mode()
     def eval_step(batch):
@@ -126,16 +130,17 @@ def build_eval_step(cfg, model):
             outputs = model(batch["lr"], batch["kernel"].reshape(b, -1), False, clip_sr=True)
             sr = outputs["sr"].float().clamp(0.0, 1.0)
             hr = batch["hr"].float()
-            kvec = outputs["kernel"].float()
-            kvec = kvec / kvec.sum(dim=-1, keepdim=True)
             m = {
                 "psnr": psnr(sr, hr),
                 "ssim": ssim(sr, hr),
                 "iou@0.5": iou_thresholds(outputs["seg"].float(), batch["seg"].float(),
                                           torch.full((1,), 0.5, device=sr.device))[:, 0],
-                "kernel_psnr": psnr(kvec.reshape(b, 1, ksize, ksize).clamp(0.0, 1.0),
-                                    batch["kernel"].float()[:, None].clamp(0.0, 1.0)),
             }
+            if has_kernel:
+                kvec = outputs["kernel"].float()
+                kvec = kvec / kvec.sum(dim=-1, keepdim=True)
+                m["kernel_psnr"] = psnr(kvec.reshape(b, 1, ksize, ksize).clamp(0.0, 1.0),
+                                        batch["kernel"].float()[:, None].clamp(0.0, 1.0))
         return m, outputs
 
     return eval_step

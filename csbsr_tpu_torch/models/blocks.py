@@ -2,10 +2,18 @@
 
 Module and attribute names are the original CSBSR torch names, so the
 state-dict keys are the ones the JAX package's translators emit and a
-released reference `.pth` loads as is. The BlockBase family
-(ConvBlock/DeconvBlock) keeps its conv in `.layer` and its activation in
-`.act`. Only what the flagship KBPN uses is ported: no norm inside a block,
-ReLU / PReLU(0.01) / LeakyReLU(0.01) or no activation.
+released reference `.pth` loads as is. Two block families:
+
+  - BlockBase (ConvBlock/DeconvBlock; KBPN, the SFT blocks, the BlurSkip
+    ladder): conv in `.layer`, BatchNorm in `.norm`, activation in `.act`;
+    ReLU / PReLU(0.01) / LeakyReLU(0.01) / sigmoid or none, no bias unless
+    asked for.
+  - base_networks (DBPNConvBlock/DBPNDeconvBlock; DBPN's Up/Down blocks,
+    the D_ variants being UpBlock/DownBlock with a merge conv):
+    conv in `.conv` or `.deconv`, PReLU(0.25) in `.act`, with bias.
+
+`max_pool_with_indices` / `max_unpool` are the JAX package's window-local
+argmax pair (CrackFormer), not `F.max_pool2d(return_indices=True)`.
 
 Params are float32. Every layer computes in the dtype of its input (the
 model's compute dtype) and casts its weights to it, as the flax modules do
@@ -135,32 +143,40 @@ class PReLU(nn.PReLU):
 
 
 _ACTIVATIONS = {"relu": nn.ReLU, "prelu": lambda: PReLU(init=0.01),
-                "lrelu": lambda: nn.LeakyReLU(0.01)}
+                "lrelu": lambda: nn.LeakyReLU(0.01), "sigmoid": nn.Sigmoid}
 
 
 class _BlockBase(nn.Module):
-    def __init__(self, layer, activation, bias, generator):
+    def __init__(self, layer, activation, bias, generator, norm=None):
         super().__init__()
         self.layer = layer
         init_for_activation_(layer.weight, activation, generator)
         if bias:
             nn.init.zeros_(layer.bias)
+        if norm == "batch":
+            self.norm = BatchNorm2d(layer.out_channels)
+        elif norm is not None:
+            raise NotImplementedError(f"block norm {norm!r} is not ported yet; "
+                                      "see ROADMAP.md, queue 1")
         if activation is not None:
             self.act = _ACTIVATIONS[activation]()
 
     def forward(self, x):
         x = self.layer(x)
+        if hasattr(self, "norm"):
+            x = self.norm(x)
         return self.act(x) if hasattr(self, "act") else x
 
 
 class ConvBlock(_BlockBase):
-    """Conv -> (act), the kbpn BlockBase convention: ReLU / PReLU(0.01) /
-    LeakyReLU(0.01) or none, kaiming or xavier init chosen by the activation."""
+    """Conv -> (BatchNorm) -> (act), the kbpn BlockBase convention: ReLU /
+    PReLU(0.01) / LeakyReLU(0.01) / sigmoid or none, kaiming or xavier init
+    chosen by the activation."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1, bias=False,
-                 activation="relu", generator=None):
+                 activation="relu", norm=None, generator=None):
         super().__init__(Conv2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias),
-                         activation, bias, generator)
+                         activation, bias, generator, norm)
 
 
 class DeconvBlock(_BlockBase):
@@ -180,3 +196,171 @@ def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+# ------------------------------------------------- DBPN back-projection blocks
+
+
+class DBPNConvBlock(nn.Module):
+    """base_networks.ConvBlock: Conv (bias) -> PReLU(0.25) or none."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride, padding, activation="prelu",
+                 generator=None):
+        super().__init__()
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride, padding, bias=True)
+        init_for_activation_(self.conv.weight, activation, generator)
+        nn.init.zeros_(self.conv.bias)
+        if activation is not None:
+            self.act = PReLU(init=0.25)
+
+    def forward(self, x):
+        x = self.conv(x)
+        return self.act(x) if hasattr(self, "act") else x
+
+
+class DBPNDeconvBlock(nn.Module):
+    """base_networks.DeconvBlock: ConvTranspose (bias) -> PReLU(0.25)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride, padding, generator=None):
+        super().__init__()
+        self.deconv = ConvTranspose2d(in_ch, out_ch, kernel_size, stride, padding, bias=True)
+        init_for_activation_(self.deconv.weight, "prelu", generator)
+        nn.init.zeros_(self.deconv.bias)
+        self.act = PReLU(init=0.25)
+
+    def forward(self, x):
+        return self.act(self.deconv(x))
+
+
+class UpBlock(nn.Module):
+    """base_networks.UpBlock; with `in_ch` given, D_UpBlock: a 1x1 merge
+    conv first (`conv`), from the dense concat of `in_ch` channels."""
+
+    def __init__(self, num_filter, k=8, s=4, p=2, in_ch=None, generator=None):
+        super().__init__()
+        g, f = generator, num_filter
+        if in_ch is not None:
+            self.conv = DBPNConvBlock(in_ch, f, 1, 1, 0, generator=g)
+        self.up_conv1 = DBPNDeconvBlock(f, f, k, s, p, generator=g)
+        self.up_conv2 = DBPNConvBlock(f, f, k, s, p, generator=g)
+        self.up_conv3 = DBPNDeconvBlock(f, f, k, s, p, generator=g)
+
+    def forward(self, x):
+        if hasattr(self, "conv"):
+            x = self.conv(x)
+        h0 = self.up_conv1(x)
+        l0 = self.up_conv2(h0)
+        h1 = self.up_conv3(l0 - x)
+        return h1 + h0
+
+
+class DownBlock(nn.Module):
+    """base_networks.DownBlock; with `in_ch` given, D_DownBlock (see UpBlock)."""
+
+    def __init__(self, num_filter, k=8, s=4, p=2, in_ch=None, generator=None):
+        super().__init__()
+        g, f = generator, num_filter
+        if in_ch is not None:
+            self.conv = DBPNConvBlock(in_ch, f, 1, 1, 0, generator=g)
+        self.down_conv1 = DBPNConvBlock(f, f, k, s, p, generator=g)
+        self.down_conv2 = DBPNDeconvBlock(f, f, k, s, p, generator=g)
+        self.down_conv3 = DBPNConvBlock(f, f, k, s, p, generator=g)
+
+    def forward(self, x):
+        if hasattr(self, "conv"):
+            x = self.conv(x)
+        l0 = self.down_conv1(x)
+        h0 = self.down_conv2(l0)
+        l1 = self.down_conv3(h0 - x)
+        return l1 + l0
+
+
+# -------------------------------------------------------- SFT conditioning
+
+
+class SFTLayer(nn.Module):
+    """kbpn SFT layer over concat(features, condition map):
+    features * sigmoid(conv(lrelu(conv(cat)))) + conv(lrelu(conv(cat)))."""
+
+    def __init__(self, feat_ch, cond_ch, generator=None):
+        super().__init__()
+        c = feat_ch + cond_ch
+        g = generator
+        self.SFT_scale_conv0 = conv2d(c, c, 3, padding=1, generator=g)
+        self.SFT_scale_conv1 = conv2d(c, feat_ch, 3, padding=1, generator=g)
+        self.SFT_shift_conv0 = conv2d(c, c, 3, padding=1, generator=g)
+        self.SFT_shift_conv1 = conv2d(c, feat_ch, 3, padding=1, generator=g)
+
+    def forward(self, features, conditions):
+        x = torch.cat([features, conditions], dim=1)
+        scale = torch.sigmoid(self.SFT_scale_conv1(F.leaky_relu(self.SFT_scale_conv0(x), 0.1)))
+        shift = self.SFT_shift_conv1(F.leaky_relu(self.SFT_shift_conv0(x), 0.1))
+        return features * scale + shift
+
+
+def _sft_branch(in_ch, out_ch, final_act, generator):
+    """Two BlockBase convs with bias, no norm: (in -> in, PReLU) then
+    (in -> out, final_act)."""
+    return nn.Sequential(
+        ConvBlock(in_ch, in_ch, 3, 1, 1, bias=True, activation="prelu", generator=generator),
+        ConvBlock(in_ch, out_ch, 3, 1, 1, bias=True, activation=final_act, generator=generator))
+
+
+class SFTLikeBlock(nn.Module):
+    """SFT from concat(features, conditions): x * scale + shift."""
+
+    def __init__(self, in_ch, cond_ch, features, generator=None):
+        super().__init__()
+        self.conv_scale = _sft_branch(in_ch + cond_ch, features, "sigmoid", generator)
+        self.conv_shift = _sft_branch(in_ch + cond_ch, features, None, generator)
+
+    def forward(self, x, cond):
+        cat = torch.cat([x, cond], dim=1)
+        return x * self.conv_scale(cat) + self.conv_shift(cat)
+
+
+class SFTBlock(nn.Module):
+    """SFT from the conditions alone: x * scale(cond) + shift(cond)."""
+
+    def __init__(self, cond_ch, features, generator=None):
+        super().__init__()
+        self.conv_scale = _sft_branch(cond_ch, features, "sigmoid", generator)
+        self.conv_shift = _sft_branch(cond_ch, features, None, generator)
+
+    def forward(self, x, cond):
+        return x * self.conv_scale(cond) + self.conv_shift(cond)
+
+
+# ------------------------------------------------ pooling with indices
+
+
+def max_pool_with_indices(x: torch.Tensor, window: int = 2):
+    """Max pool (stride = window) returning window-local argmax indices, as
+    the JAX package: x (B, C, H, W) with H, W divisible by `window`;
+    indices in [0, window^2) in row-major window order, a tie going to the
+    first position (torch.argmax and jnp.argmax agree on that). The value is
+    an `amax`, whose gradient splits equally between tied positions, as
+    jnp.max's does (F.max_pool2d's goes to its one index instead)."""
+    b, c, h, w = x.shape
+    xw = x.reshape(b, c, h // window, window, w // window, window)
+    xw = xw.permute(0, 1, 2, 4, 3, 5).reshape(b, c, h // window, w // window, window * window)
+    return xw.amax(dim=-1), xw.argmax(dim=-1)
+
+
+def max_unpool(pooled: torch.Tensor, idx: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Inverse of max_pool_with_indices: each value at its argmax position of
+    its window, zeros elsewhere (a one-hot product; no scatter)."""
+    b, c, hp, wp = pooled.shape
+    onehot = F.one_hot(idx, window * window).to(pooled.dtype)
+    xw = (pooled[..., None] * onehot).reshape(b, c, hp, wp, window, window)
+    return xw.permute(0, 1, 2, 4, 3, 5).reshape(b, c, hp * window, wp * window)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm computed in float32 (float64 for a float64 input), the
+    result in the input's dtype, as flax's GroupNorm promotes its statistics."""
+
+    def forward(self, x):
+        xf = upcast(x)
+        return F.group_norm(xf, self.num_groups, self.weight.to(xf.dtype),
+                            self.bias.to(xf.dtype), self.eps).to(x.dtype)

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import ConvBlock, DeconvBlock, conv2d
+from .blocks import ConvBlock, DeconvBlock, SFTLayer, conv2d
 from ..ops.blur import batch_blur
 from ..ops.resize import resize
 from ..utils.device import upcast
@@ -130,26 +130,13 @@ class KBPNDownBlock(nn.Module):
         return l1 + l0
 
 
-class SFTLayerKBPN(nn.Module):
-    """SFT over concat(features, kernel-condition map):
-    features * sigmoid(conv(lrelu(conv(cat)))) + conv(lrelu(conv(cat)))."""
-
-    def __init__(self, feat_ch, cond_ch, generator=None):
-        super().__init__()
-        c = feat_ch + cond_ch
-        g = generator
-        self.SFT_scale_conv0 = conv2d(c, c, 3, padding=1, generator=g)
-        self.SFT_scale_conv1 = conv2d(c, feat_ch, 3, padding=1, generator=g)
-        self.SFT_shift_conv0 = conv2d(c, c, 3, padding=1, generator=g)
-        self.SFT_shift_conv1 = conv2d(c, feat_ch, 3, padding=1, generator=g)
+class SFTLayerKBPN(SFTLayer):
+    """The SFT layer with the kernel vector broadcast to the condition map."""
 
     def forward(self, features, kernel_vec):
         b, _, h, w = features.shape
         cond = kernel_vec.to(features.dtype)[:, :, None, None].expand(b, -1, h, w)
-        x = torch.cat([features, cond], dim=1)
-        scale = torch.sigmoid(self.SFT_scale_conv1(F.leaky_relu(self.SFT_scale_conv0(x), 0.1)))
-        shift = self.SFT_shift_conv1(F.leaky_relu(self.SFT_shift_conv0(x), 0.1))
-        return features * scale + shift
+        return super().forward(features, cond)
 
 
 class KBlock(nn.Module):

@@ -6,8 +6,9 @@ bilinear-upsample conv stages; sigmoid main head plus an aux head on the
 layer-3 features. Only the resnet34 backend is ported. BatchNorm (eps 1e-5)
 uses its running statistics in eval and the batch's in train. Dropout, as in
 the JAX package: 0.3 after `psp`, 0.15 after each of `up_1`, `up_2`,
-`up_3`, 0.1 inside the aux head; the identity in eval. Tensors are NCHW;
-attribute names are the reference's.
+`up_3`, 0.1 inside the aux head; the identity in eval. Also the BlurSkip
+variants (PSPNetBlurSkip). Tensors are NCHW; attribute names are the
+reference's.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BatchNorm2d, Dropout, PReLU, conv2d
+from .blocks import BatchNorm2d, ConvBlock, Dropout, PReLU, SFTBlock, SFTLikeBlock, conv2d
 from ..ops.resize import adaptive_avg_pool, resize
 
 
@@ -128,15 +129,54 @@ class PSPNet(nn.Module):
             nn.ReLU(), Dropout(0.1), conv2d(256, n_classes, 1, generator=g), nn.Sigmoid(),
         )
 
-    def forward(self, x, generator=None):
-        h, w = x.shape[2:]
+    def _decoder(self, x, generator):
+        """(upsampled PSP features at the input size, layer-3 features)."""
         f, aux_f = self.feats(x)
         p = self.drop_psp(self.psp(f), generator)
         p = self.drop_1(self.up_1(p), generator)
         p = self.drop_2(self.up_2(p), generator)
-        p = self.drop_3(self.up_3(p), generator)
+        return self.drop_3(self.up_3(p), generator), aux_f
+
+    def _heads(self, p, aux_f, hw, generator):
         main = self.final(p)
         for layer in self.aux:
             aux_f = layer(aux_f, generator) if isinstance(layer, Dropout) else layer(aux_f)
-        aux = resize(aux_f, (h, w), method="bilinear", align_corners=True)
-        return main, aux
+        return main, resize(aux_f, hw, method="bilinear", align_corners=True)
+
+    def forward(self, x, generator=None):
+        p, aux_f = self._decoder(x, generator)
+        return self._heads(p, aux_f, x.shape[2:], generator)
+
+
+class PSPNetBlurSkip(PSPNet):
+    """PSPNet-ResNet34 plus the kernel-conditioned residual skip ladder
+    (`csbsr_tpu/models/pspnet.py:PSPNetBlurSkip`): the kernel vector,
+    broadcast to H x W, conditions `n_layer_blurskip` pairs of an SFT block
+    (`modify_blur_skip`: SFTLikeBlock over concat(features, condition), else
+    SFTBlock over the condition alone, the '_origin' variant) and a 3x3
+    ConvBlock with BatchNorm and ReLU; the ladder's output is added to the
+    decoder's before the final conv. `blur_skip` alternates the two (SFT at
+    even, ConvBlock at odd indices), the reference's ModuleList.
+
+    forward(x, kernel_vec (B, cond_ch), generator=None) -> (main, aux)."""
+
+    def __init__(self, n_classes=1, cond_ch=441, n_layer_blurskip=2, modify_blur_skip=True,
+                 generator=None):
+        super().__init__(n_classes, "resnet34", generator=generator)
+        g = generator
+        ladder = []
+        for _ in range(n_layer_blurskip):
+            ladder.append(SFTLikeBlock(64, cond_ch, 64, generator=g) if modify_blur_skip
+                          else SFTBlock(cond_ch, 64, generator=g))
+            ladder.append(ConvBlock(64, 64, 3, 1, 1, activation="relu", norm="batch",
+                                    generator=g))
+        self.blur_skip = nn.ModuleList(ladder)
+
+    def forward(self, x, kernel_vec, generator=None):
+        p, aux_f = self._decoder(x, generator)
+        b, _, h, w = p.shape
+        cond = kernel_vec.to(p.dtype)[:, :, None, None].expand(b, -1, h, w)
+        skip = p
+        for sft, conv in zip(self.blur_skip[0::2], self.blur_skip[1::2]):
+            skip = conv(sft(skip, cond))
+        return self._heads(p + skip, aux_f, x.shape[2:], generator)

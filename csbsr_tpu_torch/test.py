@@ -6,7 +6,9 @@ overrides, the output goes to <test_dir>/eval/<TEST_BLURED_NAME>/<tag>, and
 the harness scores PSNR/SSIM/kernel PSNR, AIU and, with
 --test_surface_distance, HD/MSD on the device. Weights are a torch state
 dict in the reference's names: <test_dir>/checkpoints/<iter>.pth for an
-iteration number, else <test_dir>/<weight_name>. As with the root test.py,
+iteration number, else <test_dir>/<weight_name> (parameters a reference
+checkpoint holds but never uses, CrackFormer's down{3,4,5}.nn3, are dropped
+before the strict load). As with the root test.py,
 flags go before the positionals: everything after them is read as
 `KEY VALUE` overrides.
 
@@ -53,6 +55,7 @@ def main(argv=None):
     from .data import CrackDataSetTest
     from .engine.inference import inference_for_ss
     from .models import model_from_cfg
+    from .utils.convert import drop_unused_reference_keys
     from .utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -73,7 +76,7 @@ def main(argv=None):
     model = model_from_cfg(cfg, device=device)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(drop_unused_reference_keys(sd), strict=True)
 
     dataset = CrackDataSetTest(cfg, cfg.DATASET.TEST_IMAGE_DIR, cfg.DATASET.TEST_MASK_DIR,
                                cfg.DATASET.TEST_BLURED_DIR, cfg.DATASET.TEST_BLURED_NAME)

@@ -159,7 +159,8 @@ def test_state_dict_keys_match_the_port_exactly():
     assert "segmentation_model.feats.layer3.5.bn2.running_var" in sd
 
 
-@pytest.mark.parametrize("detector,sr", [("u-net16", "KBPN"), ("PSPNet", "DBPN")])
+@pytest.mark.parametrize("detector,sr", [("SegNet", "SrcNetSR"), ("DSRL", "DSRL"),
+                                         ("PSPNet", "SrcNetSR"), ("SegNet", "KBPN")])
 def test_unported_models_raise(detector, sr):
     cfg = get_cfg_defaults()
     cfg.MODEL.DETECTOR_TYPE, cfg.MODEL.SR = detector, sr
