@@ -67,6 +67,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 launch counts reset just before and read just after each
                 path (2 min-plus launches per image and per step). One JSON
                 line per recipe: images/s, steps/s, peak memory, launches.
+  8. serve      the serving half of the test CLI, int8 serving included:
+                the flagship at full width through engine/inference.inference_tti
+                on TTI_IMAGES synthetic unlabelled 448x448 PNGs made from the
+                seed in a temporary directory (64x64 patches: 49 per image,
+                1792x1792 SR; chunks of 12), in bf16 and then in int8
+                (calibrated on the first image's first 12 patches, as the CLI
+                does), with images/s, the device part alone and peak memory;
+                the serve_latency table (B = 1, 4, 8 at 56x56; full 448 and
+                896 images, float and uint8 crossings; bf16 and int8) and its
+                conv table (each int8 conv shape of a 12-patch call: bf16 conv,
+                int8 conv, int8 product, bounds); card against CPU in int8 on
+                one 56x56 patch: in float64 the card's int8 outputs equal the
+                CPU's to 1e-12 in relative L2, with static and with dynamic
+                scales (the quantization decisions agree); in float32 the
+                calibrated abs-maxima within 1e-4 relative, the card's int8
+                outputs within 1.5x of the CPU's int8 error against its float
+                output, and within 2x of that error of the CPU's int8 outputs
+                (level flips cascade, see tests/test_torch_port_int8.py); for
+                each of the six recipes the bf16-vs-int8 agreement on the
+                patches of one 448x448 image (int8_accuracy.agreement, with
+                the int8 conv count), then that image through score_for_ss
+                with the HD bank in int8 (2 min-plus launches); last, the
+                _int_mm route against its float64 plain version with
+                torch.equal on the int32 accumulators, for every distinct int8
+                conv configuration (kind, kernel, stride, padding, dilation,
+                groups) that the six recipes' serving paths ran, at the input
+                shapes of its largest call (the 896x896 image's 16 patches,
+                TTI's 12-patch chunk) and its smallest (one patch), with the
+                weight of the module that made that call.
 
 Then the `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 It exits without a result when CUDA is absent or the package is missing.
@@ -106,6 +135,8 @@ ZOO = (("dbpn_pspnet", "config_cssr_pspnet"), ("unet16", "config_csbsr_unet"),
        ("pspnet_blurskip", "config_csbsr_pspnet_blurskip"),
        ("crackformer", "config_csbsr_crackformer"), ("hrnet_ocr", "config_csbsr_hrnet"))
 ZOO_IMAGES, ZOO_STEPS = 2, 3
+TTI_IMAGES, TTI_SIZE, TTI_PATCH, TTI_CHUNK = 3, 448, 64, 12  # the CLI's 64 and batch_size
+LATENCY_ITERS = 10
 HEAD_LOGITS = ("cls_head", "aux_head")  # HRNet-OCR's heads, before resize and sigmoid
 # the zoo trains in the joint phase from its first step (no pretrain windows,
 # as the PSPNet_BlurSkip recipe has it): the phase of most of a run's
@@ -747,6 +778,311 @@ def check_against_cpu(model, cfg, patch, dtype=torch.float32, hold=True):
             "input_hw": list(patch.shape[-2:]), "compute_dtype_vs_this_dtype_max_rel": low_err}
 
 
+def _tti_run(cfg, model, data, out_dir, dev):
+    """inference_tti over `data` after one warm-up image (host-inclusive
+    images/s, PNG writes included), then the device part alone (tti_outputs
+    of image 0, twice: upload, the model in chunks, joins, the uint8 SR and
+    float32 seg copies to the host) and the peak memory; returns (report,
+    (sr uint8 and seg of image 0, the files written))."""
+    from csbsr_tpu_torch.engine.inference import inference_tti, tti_outputs
+    from csbsr_tpu_torch.ops import quant
+
+    class First:  # the warm-up: image 0 alone
+        def __len__(self):
+            return 1
+
+        def get(self, i):
+            return data.get(0)
+
+    inference_tti(cfg, model, First(), output_dir=out_dir + "_warmup", device=dev,
+                  max_patches_per_call=TTI_CHUNK, log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    quant.PRODUCTS.clear()
+    t0 = time.perf_counter()
+    inference_tti(cfg, model, data, output_dir=out_dir, device=dev,
+                  max_patches_per_call=TTI_CHUNK, log_fn=lambda *a: None)
+    total = time.perf_counter() - t0
+    products = sum(quant.PRODUCTS.values())
+    patches, _, ushape, seg_ushape = data.get(0)
+    dev_s = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        sr_u8, seg, _ = tti_outputs(cfg, model, patches, ushape, seg_ushape, device=dev,
+                                    max_patches_per_call=TTI_CHUNK)
+        dev_s.append(time.perf_counter() - t1)
+    files = sorted(os.path.relpath(os.path.join(r, f), out_dir)
+                   for r, _, fs in os.walk(out_dir) for f in fs)
+    return {"images": len(data), "seconds": total, "images_per_s": len(data) / total,
+            "device_part_s": dev_s, "device_part_images_per_s": 1.0 / min(dev_s),
+            "int8_products": products, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sr_shape": list(sr_u8.shape), "png_files": len(files)}, (sr_u8, seg, files)
+
+
+def phase_serve(dev):
+    """The serving half: TTI (bf16, int8), latency table, card vs CPU in int8,
+    one int8 image per zoo recipe, the int8 exactness check. Returns the
+    min-plus launch counts of its paths that run the HD bank."""
+    import tempfile
+
+    from csbsr_tpu_torch import serve_latency
+    from csbsr_tpu_torch.config.flagship import flagship_cfg
+    from csbsr_tpu_torch.data import TTICrackDataSetTest
+    from csbsr_tpu_torch.data.synthetic import SyntheticCrackSet
+    from csbsr_tpu_torch.engine.inference import calibrate_int8
+    from csbsr_tpu_torch.int8_accuracy import compare
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.models.blocks import int8_modules
+    from csbsr_tpu_torch.ops.patch import split_patch
+    from PIL import Image
+
+    t_start = time.perf_counter()
+    cfg = flagship_cfg(SEED)
+    model = model_from_cfg(cfg, device=dev)
+    report, configs = {}, {}  # configs: the int8 conv configurations the recipes ran
+    with tempfile.TemporaryDirectory() as tmp:
+        photos = os.path.join(tmp, "photos")
+        os.makedirs(photos)
+        syn = SyntheticCrackSet(cfg, TTI_IMAGES, TTI_SIZE, dev, seed=SEED)
+        for i in range(TTI_IMAGES):
+            img = (syn.get(i)[1].permute(1, 2, 0).clamp(0, 1) * 255).round().byte().cpu().numpy()
+            Image.fromarray(img).save(os.path.join(photos, f"photo{i}.png"))
+        tcfg = cfg.clone()
+        tcfg.INPUT.IMAGE_SIZE = [TTI_PATCH, TTI_PATCH]
+        data = TTICrackDataSetTest(tcfg, photos)
+        n_patches = int(data.get(0)[0].shape[0])
+        report["tti_bf16"], (sr_b, seg_b, files_b) = _tti_run(tcfg, model, data,
+                                                              os.path.join(tmp, "bf16"), dev)
+        calibrate_int8(model, data.get(0)[0][:TTI_CHUNK])
+        n_int8 = len(int8_modules(model))
+        chunk = torch.from_numpy(data.get(0)[0][:TTI_CHUNK]).to(dev)
+        _collect_configs(configs, "flagship", model, chunk)
+        _collect_configs(configs, "flagship", model, chunk[:1])
+        report["tti_int8"], (sr_q, seg_q, files_q) = _tti_run(tcfg, model, data,
+                                                              os.path.join(tmp, "int8"), dev)
+    if report["tti_bf16"]["int8_products"] or not report["tti_int8"]["int8_products"]:
+        raise AssertionError(f"int8 products: bf16 run {report['tti_bf16']['int8_products']}, "
+                             f"int8 run {report['tti_int8']['int8_products']}")
+    want = TTI_IMAGES * (1 + 2 + 11 + 1)  # SR image, two kernel dumps, 11 masks, raw map
+    if not (len(files_b) == len(files_q) == want and files_b == files_q):
+        raise AssertionError(f"TTI wrote {len(files_b)} / {len(files_q)} files, want {want}")
+    if tuple(sr_b.shape) != (1, 3, 4 * TTI_SIZE, 4 * TTI_SIZE) or not np.isfinite(seg_q).all():
+        raise AssertionError(f"TTI outputs: {sr_b.shape}, finite seg {np.isfinite(seg_q).all()}")
+    tti_agree = compare({"sr": torch.from_numpy(sr_b) / 255.0, "seg": torch.from_numpy(seg_b)},
+                        {"sr": torch.from_numpy(sr_q) / 255.0, "seg": torch.from_numpy(seg_q)})
+    emit({"phase": "serve", "part": "tti", "config": "configs/config_csbsr_pspnet.yaml "
+          f"(random init, seed {SEED}, bf16 compute)", "image_hw": [TTI_SIZE, TTI_SIZE],
+          "patch": TTI_PATCH, "patches_per_image": n_patches,
+          "chunk": TTI_CHUNK, "int8_convs": n_int8, **report, "bf16_vs_int8": tti_agree})
+
+    # the serve_latency table, bf16 then int8 (calibrated on 8 patches of 56^2)
+    model = model_from_cfg(cfg, device=dev)
+    lat = {"bf16": serve_latency.run_mode(model, cfg, dev, LATENCY_ITERS)}
+    calib = np.random.RandomState(SEED).rand(8, 3, serve_latency.PATCH, serve_latency.PATCH)
+    calibrate_int8(model, calib.astype(np.float32))
+    lat["int8"] = serve_latency.run_mode(model, cfg, dev, LATENCY_ITERS)
+    side = max(serve_latency.HR_SIZES) // int(cfg.MODEL.SCALE_FACTOR)  # its largest call
+    lr = torch.rand((3, side, side), device=dev)
+    _collect_configs(configs, "flagship", model, split_patch(lr, serve_latency.PATCH,
+                                                             serve_latency.PATCH)[0])
+    convs = serve_latency.conv_table(model, dev, LATENCY_ITERS)
+    emit({"phase": "serve", "part": "latency", "iters": LATENCY_ITERS, **lat})
+    emit({"phase": "serve", "part": "convs", "batch": serve_latency.CONV_BATCH, "rows": convs})
+    del model
+    torch.cuda.empty_cache()
+
+    report_cpu = check_int8_against_cpu(cfg, dev)
+    emit({"phase": "serve", "part": "int8_vs_cpu", **report_cpu})
+
+    paths = {}
+    for name, recipe in (("flagship", "config_csbsr_pspnet"),) + ZOO:
+        paths[f"serve_int8:{name}"] = _zoo_int8_image(dev, name, recipe, configs)
+    exact = check_int8_exactness(dev, configs)
+    emit({"phase": "serve", "part": "int8_exactness", "configs": exact,
+          "seconds": time.perf_counter() - t_start})
+    return paths
+
+
+def _collect_configs(configs, recipe, model, x):
+    """Add the int8 conv configurations that one call of `model` on `x` runs,
+    keeping for each the module (its weight, its int8 input channels) and
+    input shape of its largest and of its smallest call (N*H*W of the input:
+    the rows of the product, up to the stride)."""
+    from csbsr_tpu_torch.serve_latency import conv_shapes
+
+    for key, (name, m, shape, _) in conv_shapes(model, x).items():
+        e = configs.setdefault(key[:6], {"recipes": set()})  # kind, k, stride, pad, dil, groups
+        e["recipes"].add(recipe)
+        qc = m.quant_channels
+        case = {"rows": shape[0] * shape[2] * shape[3], "module": f"{recipe}:{name}",
+                "weight": m.weight.detach() if qc is None else m.weight.detach()[:, :qc],
+                "shape": (shape[0], shape[1] if qc is None else qc, shape[2], shape[3])}
+        if "largest" not in e or case["rows"] > e["largest"]["rows"]:
+            e["largest"] = case
+        if "smallest" not in e or case["rows"] < e["smallest"]["rows"]:
+            e["smallest"] = case
+
+
+def check_int8_exactness(dev, configs):
+    """The _int_mm route against the float64 plain version, torch.equal on the
+    int32 accumulators, for each configuration at the input shapes of its
+    largest and smallest call on the serving paths (the product's rows M,
+    and the padding of K, N and M, as served), with that module's own int8
+    weight and a random int8 input."""
+    from csbsr_tpu_torch.ops.quant import conv_acc, conv_transpose_acc, quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for (kind, k, s, p, d, g), e in sorted(configs.items(), key=lambda kv: str(kv[0])):
+        for which in ("largest", "smallest"):
+            case = e[which]
+            if which == "smallest" and case["shape"] == e["largest"]["shape"]:
+                continue
+            xq = torch.randint(-127, 128, case["shape"], generator=gen, device=dev,
+                               dtype=torch.int8)
+            if kind == "deconv":
+                wq, _ = quantize_weight(case["weight"], out_axis=1)
+                got = conv_transpose_acc(xq, wq, s, p)
+                ref = conv_transpose_acc(xq, wq, s, p, route="plain")
+            else:
+                wq, _ = quantize_weight(case["weight"], out_axis=0)
+                got = conv_acc(xq, wq, s, p, d, g)
+                ref = conv_acc(xq, wq, s, p, d, g, route="plain")
+            torch.cuda.synchronize()
+            equal = got.dtype == torch.int32 and torch.equal(got, ref)
+            rows.append({"kind": kind, "k": k, "stride": s, "padding": p, "dilation": d,
+                         "groups": g, "call": which, "input": list(case["shape"]),
+                         "out_channels": int(wq.shape[1] if kind == "deconv" else wq.shape[0]),
+                         "module": case["module"], "recipes": sorted(e["recipes"]),
+                         "equal": equal})
+            del xq, got, ref
+            if not equal:
+                raise AssertionError(f"int8 _int_mm route != plain version at {rows[-1]}")
+    return rows
+
+
+def check_int8_against_cpu(cfg, dev):
+    """The flagship with int8 convs on the card and on the host CPU, same
+    weights, one 56x56 patch.
+
+    In float64, where every quantization decision on the card is the CPU's
+    (their activations differ by summation order alone, ~1e-16), the card's
+    int8 outputs must equal the CPU's to 1e-12 in relative L2, with static
+    scales (the card's calibration loaded into the CPU model) and with
+    dynamic ones; a float or miswired int8 path on the card is as far off as
+    the quantization error (~1e-3). In float32 (TF32 off), reported and held
+    loosely: calibrated abs-maxima within 1e-4 relative; at the card's
+    scales, per output, the card's int8 error against the CPU's float output
+    within 1.5x of the CPU's int8 error, and the card's int8 output within 2x
+    of that error of the CPU's (float32 rounding flips single int8 levels,
+    and a flip cascades)."""
+    from csbsr_tpu_torch.engine.inference import calibrate_int8
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.models.blocks import int8_modules, load_act_amax
+    from csbsr_tpu_torch.utils.device import full_fp32
+
+    t0 = time.perf_counter()
+    patch = torch.rand((1, 3, 56, 56), generator=torch.Generator().manual_seed(SEED))
+    keys = ("sr", "kernel", "seg", "aux")
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).norm() / b.norm())
+
+    def int8_runs(dtype, modes):
+        """{mode: {card, cpu: int8 outputs}} for modes "static" (at the
+        card's calibrated scales) and "dynamic", the CPU's float outputs, and
+        the calibrated abs-maxima"""
+        models = {w: model_from_cfg(cfg, device=d, dtype=dtype, seed=SEED).to(dtype)
+                  for w, d in (("card", dev), ("cpu", "cpu"))}
+        out = {}
+        x = patch.to(dtype)
+        with full_fp32(), torch.inference_mode():
+            float_cpu = models["cpu"](x, clip_sr=True)
+            for where, m in models.items():
+                calibrate_int8(m, x)
+            amax = {w: {n: float(q.act_amax) for n, q in int8_modules(m)}
+                    for w, m in models.items()}
+            load_act_amax(models["cpu"], amax["card"])
+            for mode in modes:
+                out[mode] = {}
+                for where, m in models.items():
+                    for _, q in int8_modules(m) if mode == "dynamic" else ():
+                        q.act_amax = None
+                    out[mode][where] = m(x.to(next(m.parameters()).device), clip_sr=True)
+        return out, float_cpu, amax
+
+    out, float_cpu, _ = int8_runs(torch.float64, ("static", "dynamic"))
+    float64 = {mode: {k: {"card_vs_cpu_int8": rel(o["card"][k], o["cpu"][k]),
+                          "cpu_int8_vs_float": rel(o["cpu"][k], float_cpu[k])} for k in keys}
+               for mode, o in out.items()}
+    bad = [f"float64 {mode} {k}" for mode, e in float64.items() for k, v in e.items()
+           if not (v["card_vs_cpu_int8"] <= 1e-12 and v["cpu_int8_vs_float"] > 1e-6)]
+
+    out, float_cpu, amax = int8_runs(torch.float32, ("static",))
+    out = out["static"]
+    amax_err = max(abs(amax["card"][n] - amax["cpu"][n]) / max(abs(amax["cpu"][n]), 1e-12)
+                   for n in amax["cpu"])
+    errs = {}
+    for key in keys:
+        quant_err = rel(out["cpu"][key], float_cpu[key])
+        card_quant_err = rel(out["card"][key], float_cpu[key])
+        card_vs_cpu = rel(out["card"][key], out["cpu"][key])
+        errs[key] = {"cpu_int8_vs_float": quant_err, "card_int8_vs_cpu_float": card_quant_err,
+                     "card_vs_cpu_int8": card_vs_cpu}
+        if not (card_quant_err <= 1.5 * quant_err and card_vs_cpu <= 2.0 * quant_err):
+            bad.append(f"float32 {key}")
+    if amax_err > 1e-4 or bad:
+        raise AssertionError(f"int8 card vs CPU: amax rel err {amax_err}, outputs {bad}: "
+                             f"float64 {float64}, float32 {errs}")
+    return {"float64": float64, "float64_tolerance": 1e-12, "amax_max_rel_err": amax_err,
+            "amax_tolerance": 1e-4, "int8_convs": len(amax["cpu"]), "float32": errs,
+            "seconds": time.perf_counter() - t0}
+
+
+def _zoo_int8_image(dev, name, recipe, configs):
+    """A zoo recipe's bf16-vs-int8 agreement on the patches of one 448x448
+    image (int8_accuracy.agreement: SR PSNR, seg IoU at 0.5, largest seg
+    deviation, kernel PSNR; it calibrates the int8 convs on those patches),
+    then the image through score_for_ss with the HD bank in int8; returns
+    the int8 run's launch counts."""
+    from csbsr_tpu_torch.data.synthetic import SyntheticCrackSet
+    from csbsr_tpu_torch.engine.inference import score_for_ss
+    from csbsr_tpu_torch.int8_accuracy import agreement
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.ops import cuda_build, quant
+
+    t0 = time.perf_counter()
+    cfg = zoo_cfg(recipe)
+    model = model_from_cfg(cfg, device=dev)
+    data = SyntheticCrackSet(cfg, 1, HR_SIZE, dev, seed=SEED)
+    patches = data.get(0)[0]
+    agree = agreement(model, patches)
+    _collect_configs(configs, name, model, patches)
+    _collect_configs(configs, name, model, patches[:1])
+    torch.cuda.synchronize()
+    cuda_build.LAUNCHES.clear()
+    quant.PRODUCTS.clear()
+    t1 = time.perf_counter()
+    rows, summary, _ = score_for_ss(cfg, model, data, device=dev, test_surface_distance=True,
+                                    log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t1
+    launches, products = dict(cuda_build.LAUNCHES), dict(quant.PRODUCTS)
+    nan_ok = {"PSNR_kernel"} if cfg.MODEL.SR != "KBPN" else set()
+    bad = {k: v for k, v in summary.items() if not math.isfinite(v) and k not in nan_ok}
+    if bad or launches.get("minplus_rows", 0) != 2 or not products:
+        raise AssertionError(f"{name} int8: metrics {summary}, launches {launches}, "
+                             f"int8 products {products}")
+    emit({"phase": "serve", "part": "zoo_int8", "recipe": f"configs/{recipe}.yaml", "name": name,
+          "bf16_vs_int8": agree, "int8_products": sum(products.values()),
+          "int8_summary": summary, "int8_image_s": int8_s, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: CUDA is not available\n")
@@ -762,6 +1098,7 @@ def main():
     paths = {"eval": phase_main_path(dev), "train": phase_train(dev)}
     for name, recipe in ZOO:
         paths[f"zoo_eval:{name}"], paths[f"zoo_train:{name}"] = phase_zoo(dev, name, recipe)
+    paths.update(phase_serve(dev))
     for k in kernels:
         by_path = {path: launches.get(k["name"], 0) for path, launches in paths.items()}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)

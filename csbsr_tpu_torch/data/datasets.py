@@ -11,6 +11,10 @@ Test side: `CrackDataSetTest` reads the GT image and mask, the precomputed
 blurred LR and the GT kernel (under <blur_dir>/<name>/{lr_images,kernels})
 and cuts the LR into patches. Arrays come out NCHW: patches (N, 3, h, w), SR
 target (3, H, W), seg target (1, H, W), kernels (N, k, k).
+`RetinalDataSetTest` is the same over png pairs whose masks are scaled x255
+(binary after the /255). `TTICrackDataSetTest` is the unlabelled set: png
+images that are themselves the LR input, cut into INPUT.IMAGE_SIZE patches
+(not divided by the scale factor; SR is 4x each patch).
 
 PIL is imported only where a file is read.
 """
@@ -147,3 +151,60 @@ class CrackDataSetTest:
             ushape,
             seg_ushape,
         )
+
+
+class RetinalDataSetTest(CrackDataSetTest):
+    """Retinal test set: *.png pairs, mask values scaled x255 before the
+    /255 (kept binary), the LR and kernel under the image's own name; the
+    seg unfold shape carries MODEL.NUM_CLASSES channels."""
+
+    def __init__(self, cfg, image_dir, seg_dir, blur_dir, blur_name):
+        super().__init__(cfg, image_dir, seg_dir, blur_dir, blur_name)
+        self.fnames = sorted(p.name for p in Path(image_dir).glob("*.png"))
+        self.seg_ch = cfg.MODEL.NUM_CLASSES
+
+    def get(self, i: int):
+        fname = self.fnames[i]
+        sr_target = _imread(os.path.join(self.gt_image_dir, fname))
+        seg_target = _imread(os.path.join(self.gt_seg_dir, fname))[:, :, :1] * 255
+        sr_target, seg_target = self.transforms(sr_target, seg_target)
+        kernel = _imread(os.path.join(self.gt_blur_dir, fname)).astype(np.float32) / 255.0
+        kernel = kernel[:, :, 0]
+        kernel = kernel / kernel.sum()
+        if self.scale_factor != 1:
+            lr, _ = self.transforms(_imread(os.path.join(self.input_image_dir, fname)), None)
+        else:
+            lr = sr_target
+        patches, ushape = split_patch(_chw(lr), self.patch_h, self.patch_w)
+        ushape[[5, 6]] = ushape[[5, 6]] * self.scale_factor
+        seg_ushape = ushape.copy()
+        seg_ushape[[1, 4]] = self.seg_ch
+        kernels = np.broadcast_to(kernel, (int(ushape[2] * ushape[3]), *kernel.shape)).copy()
+        return (np.ascontiguousarray(patches, dtype=np.float32),
+                _chw(sr_target.astype(np.float32)), _chw(seg_target.astype(np.float32)),
+                kernels.astype(np.float32), fname, ushape, seg_ushape)
+
+
+class TTICrackDataSetTest:
+    """Unlabelled real images: <image_dir>/*.png, each the LR input, cut
+    into INPUT.IMAGE_SIZE patches. get(i) -> (patches (N, 3, h, w), fname,
+    img_ushape, seg_ushape), the unfold shapes scaled to the SR size."""
+
+    def __init__(self, cfg, image_dir):
+        self.image_dir = image_dir
+        self.fnames = sorted(p.name for p in Path(image_dir).glob("*.png"))
+        self.transforms = TestTransforms(cfg)
+        self.scale_factor = cfg.MODEL.SCALE_FACTOR
+        self.patch_h, self.patch_w = [int(v) for v in cfg.INPUT.IMAGE_SIZE]
+
+    def __len__(self):
+        return len(self.fnames)
+
+    def get(self, i: int):
+        fname = self.fnames[i]
+        img, _ = self.transforms(_imread(os.path.join(self.image_dir, fname)), None)
+        patches, ushape = split_patch(_chw(img), self.patch_h, self.patch_w)
+        ushape[[5, 6]] = ushape[[5, 6]] * self.scale_factor
+        seg_ushape = ushape.copy()
+        seg_ushape[4] = 1
+        return np.ascontiguousarray(patches, dtype=np.float32), fname, ushape, seg_ushape

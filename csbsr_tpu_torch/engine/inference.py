@@ -1,9 +1,16 @@
-"""Test-time evaluation (`csbsr_tpu/engine/inference.py:inference_for_ss`).
+"""Test-time inference (`csbsr_tpu/engine/inference.py`).
 
 Patched LR -> model -> patch reassembly -> PSNR/SSIM/kernel-PSNR, IoU at 99
 thresholds (AIU) and, optionally, HD/MSD over the same 99-threshold bank on
 the device (metrics/device_surface.py, whose EDT row pass is the CUDA
-min-plus kernel on the card).
+min-plus kernel on the card) or with the host oracle
+(metrics/surface_distance.py), and Acc/Sens/Spec at threshold 0.5 (the
+retinal metrics).
+
+`inference_tti` serves unlabelled images: the patch chunks' outputs stay on
+the device, are joined there, and cross to the host once per image, the SR
+as uint8 (the bytes its PNG holds) and the seg map as float32.
+`calibrate_int8` switches a model to int8 serving with calibrated scales.
 
 Each image's work runs in named profiler ranges (eval.model, eval.sr_metrics,
 eval.iou, eval.hd_bank) that `python -m csbsr_tpu_torch.profile_eval` reads;
@@ -28,8 +35,13 @@ from torch.profiler import record_function
 
 from ..metrics.device_metrics import iou_thresholds, psnr, ssim
 from ..metrics.device_surface import distance_metrics_banked
+from ..models.blocks import int8_modules, int8_serve
 from ..ops.patch import joint_patch
 from ..utils.device import full_fp32, resolve_device
+
+# the masks saved of the 99-threshold bank: 0.01, 0.10, 0.20, ..., 0.90, 0.99
+SAVE_IDX = [0] + [9 + i * 10 for i in range(9)] + [98]
+CLS_THRESHOLD = 0.5  # the retinal metrics' threshold
 
 
 def _prefetched(dataset):
@@ -63,6 +75,27 @@ def build_infer_fn(cfg, model, device):
     return infer
 
 
+@torch.inference_mode()
+def calibrate_int8(model, sample_patches, scope: str = "all"):
+    """Swap `model`'s convs for int8 ones (`blocks.int8_serve`) and calibrate
+    their static activation scales: one forward over `sample_patches` (N, 3,
+    h, w) in the compute dtype, with float convs, records each int8 conv's
+    abs-max input (the JAX package's `mutable=["quant"]` pass). Returns the
+    model, now serving int8 with static scales. Without calibration an int8
+    model serves with dynamic scales."""
+    int8_serve(model, scope)
+    mods = [m for _, m in int8_modules(model)]
+    dev = next(model.parameters()).device
+    for m in mods:
+        m.act_amax, m.calibrating = None, True
+    try:
+        model(torch.as_tensor(sample_patches, dtype=torch.float32, device=dev), clip_sr=True)
+    finally:
+        for m in mods:
+            m.calibrating = False
+    return model
+
+
 def thresholds_for(test_aiu: bool) -> np.ndarray:
     if test_aiu:
         return np.array([i * 0.01 for i in range(1, 100)], np.float32)
@@ -71,24 +104,30 @@ def thresholds_for(test_aiu: bool) -> np.ndarray:
 
 @torch.inference_mode()
 def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
-                 test_surface_distance: bool = False,
+                 test_surface_distance: bool = False, surface_distance_device: bool = True,
+                 test_classification_metrics: bool = False,
                  on_image: Optional[Callable] = None, log_fn=print):
     """Score a CrackDataSetTest-style dataset.
 
     Returns (rows, summary, curves): one dict per image (its metrics, `fname`
     and the host `seconds` it took), the summary dict of the JAX harness
-    (PSNR, SSIM, PSNR_kernel, AIU, IoU_max, IoU_max_threshold and, with
-    `test_surface_distance`, AHD, HD_min, AMSD, MSD_min), and the
+    (PSNR, SSIM, PSNR_kernel, AIU, IoU_max, IoU_max_threshold; with
+    `test_classification_metrics` Acc, Sens, Spec; with
+    `test_surface_distance` AHD, HD_min, AMSD, MSD_min, on the device or,
+    with `surface_distance_device=False`, by the host oracle), and the
     per-threshold arrays (thresholds, aiu, hd, msd; images x thresholds).
     `on_image(fname, sr_pred, seg_pred, k2d)` sees each image's outputs.
     """
+    from ..metrics.retinal import get_retinal_seg_metrics
+    from ..metrics.surface_distance import calc_distance_metrics
+
     dev = resolve_device(device)
     infer = build_infer_fn(cfg, model, dev)
     thresholds = thresholds_for(test_aiu)
     th_dev = torch.as_tensor(thresholds, device=dev)
 
     rows: List[Dict] = []
-    aiu_rows, hd_rows, msd_rows = [], [], []
+    aiu_rows, hd_rows, msd_rows, cls_rows = [], [], [], []
     with full_fp32():
         for i, item in enumerate(_prefetched(dataset)):
             t0 = time.perf_counter()
@@ -113,7 +152,19 @@ def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
                 aiu_rows.append(iou_thresholds(seg_pred, seg_t, th_dev)[0].cpu().numpy())
             row["AIU_scores"] = float(np.mean(aiu_rows[-1]))
 
-            if test_surface_distance:
+            if test_classification_metrics:
+                cls_rows.append(get_retinal_seg_metrics(
+                    (seg_pred[:, 0] > CLS_THRESHOLD).to(torch.int16).cpu().numpy(),
+                    (seg_t[:, 0] > 0.5).to(torch.int16).cpu().numpy()))
+
+            if test_surface_distance and not surface_distance_device:
+                # the host oracle over the same bank: (1, T, H, W) vs (1, 1, H, W)
+                prob = seg_pred[:, 0].cpu().numpy()
+                hd, msd = calc_distance_metrics(prob[:, None] > thresholds[:, None, None],
+                                                (seg_t[:, 0] > 0.5).cpu().numpy()[:, None])
+                hd_rows.append(hd[0])
+                msd_rows.append(msd[0])
+            elif test_surface_distance:
                 with record_function("eval.hd_bank"):
                     # zero-pad to 64-px multiples (exact: padding adds no contour)
                     h, w = seg_pred.shape[-2:]
@@ -124,6 +175,7 @@ def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
                     )
                     hd_rows.append(hd[0].cpu().numpy())
                     msd_rows.append(msd[0].cpu().numpy())
+            if test_surface_distance:
                 row["HD95_scores"] = float(np.mean(hd_rows[-1]))
                 row["MSD_scores"] = float(np.mean(msd_rows[-1]))
             if on_image is not None:
@@ -145,6 +197,10 @@ def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
         "IoU_max": float(per_th.max()),
         "IoU_max_threshold": float(thresholds[int(per_th.argmax())]),
     }
+    if cls_rows:
+        summary.update({name: float(np.mean(np.concatenate([np.atleast_1d(c[key])
+                                                             for c in cls_rows])))
+                        for name, key in (("Acc", "acc"), ("Sens", "sens"), ("Spec", "spec"))})
     curves = {"thresholds": thresholds, "aiu": aiu}
     if hd_rows:
         ahd, amsd = np.stack(hd_rows), np.stack(msd_rows)
@@ -184,6 +240,8 @@ def write_artifacts(output_dir: str, rows, summary, curves, test_aiu: bool = Tru
 
 def inference_for_ss(cfg, model, dataset, *, output_dir: str, device=None,
                      test_aiu: bool = True, test_surface_distance: bool = False,
+                     surface_distance_device: bool = True,
+                     test_classification_metrics: bool = False,
                      save_images: bool = False, log_fn=print) -> Dict[str, float]:
     """Score the dataset, write the artifacts, return the summary dict."""
     on_image = None
@@ -191,7 +249,7 @@ def inference_for_ss(cfg, model, dataset, *, output_dir: str, device=None,
         from ..utils.save_output import save_img, save_kernel, save_mask
 
         thresholds = thresholds_for(test_aiu)
-        save_idx = [0] + [9 + i * 10 for i in range(9)] + [98] if test_aiu else [0]
+        save_idx = SAVE_IDX if test_aiu else [0]
 
         def on_image(fname, sr_pred, seg_pred, k2d):
             save_img(output_dir, sr_pred.cpu().numpy(), [fname])
@@ -205,9 +263,62 @@ def inference_for_ss(cfg, model, dataset, *, output_dir: str, device=None,
 
     rows, summary, curves = score_for_ss(
         cfg, model, dataset, device=device, test_aiu=test_aiu,
-        test_surface_distance=test_surface_distance, on_image=on_image, log_fn=log_fn)
+        test_surface_distance=test_surface_distance,
+        surface_distance_device=surface_distance_device,
+        test_classification_metrics=test_classification_metrics, on_image=on_image,
+        log_fn=log_fn)
     write_artifacts(output_dir, rows, summary, curves, test_aiu)
     return summary
+
+
+def sr_to_uint8(sr: torch.Tensor) -> torch.Tensor:
+    """round(clip(sr, 0, 1) * 255) as uint8, on sr's device: the bytes
+    `save_img` writes for the float image."""
+    return torch.round(sr.float().clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+@torch.inference_mode()
+def tti_outputs(cfg, model, patches, img_ushape, seg_ushape, *, device=None,
+                max_patches_per_call: int = 6):
+    """One unlabelled image: its patches (N, 3, h, w) go to the device once
+    and through the model in chunks of `max_patches_per_call`; the outputs
+    stay there and are joined there. Returns (sr uint8 (1, 3, H, W), seg
+    float32 (1, 1, H, W), the first patch's kernel (1, k, k)), on the host."""
+    dev = resolve_device(device)
+    infer = build_infer_fn(cfg, model, dev)
+    x = torch.as_tensor(patches, dtype=torch.float32).to(dev)
+    srs, segs, k2d = [], [], None
+    for s in range(0, x.shape[0], max_patches_per_call):
+        sr_p, seg_p, k = infer(x[s:s + max_patches_per_call])
+        srs.append(sr_p)
+        segs.append(seg_p)
+        k2d = k[:1] if k2d is None else k2d
+    sr_u8 = sr_to_uint8(joint_patch(torch.cat(srs), img_ushape)).cpu().numpy()
+    seg = joint_patch(torch.cat(segs), seg_ushape).cpu().numpy()
+    return sr_u8, seg, k2d.cpu().numpy()
+
+
+def inference_tti(cfg, model, dataset, *, output_dir: str, device=None,
+                  max_patches_per_call: int = 6, log_fn=print):
+    """Unlabelled real-image inference over a TTICrackDataSetTest: for each
+    image, the SR image (images/), the kernel of its first patch for KBPN
+    (kernels_max/, kernels_sum/) and the seg map thresholded at the 11 saved
+    thresholds plus the raw map (masks/); no metrics."""
+    from ..utils.save_output import save_img, save_kernel, save_mask
+
+    thresholds = thresholds_for(True)
+    for i, (patches, fname, img_ushape, seg_ushape) in enumerate(_prefetched(dataset)):
+        sr_u8, seg, k2d = tti_outputs(cfg, model, patches, img_ushape, seg_ushape,
+                                      device=device, max_patches_per_call=max_patches_per_call)
+        save_img(output_dir, sr_u8.astype(np.float32) / 255.0, [fname])
+        if cfg.MODEL.SR == "KBPN":
+            save_kernel(output_dir, k2d, [fname])
+        for idx in SAVE_IDX:
+            save_mask(output_dir, (seg > thresholds[idx]).astype(np.float32), [fname],
+                      thresholds[idx])
+        save_mask(output_dir, seg, [fname], -1)
+        if (i + 1) % 10 == 0:
+            log_fn(f"tti inference {i + 1}/{len(dataset)}")
 
 
 def plot_metrics_th(scores, thresholds, name, output_dir, med=False):

@@ -15,6 +15,14 @@ released reference `.pth` loads as is. Two block families:
 `max_pool_with_indices` / `max_unpool` are the JAX package's window-local
 argmax pair (CrackFormer), not `F.max_pool2d(return_indices=True)`.
 
+int8 serving (`int8_serve`) swaps a built model's convs for `Int8Conv2d` /
+`Int8ConvTranspose2d`, which keep the same `weight` / `bias` parameters (a
+state dict loads strictly in either mode) and compute through
+`ops/quant.py`. The quantized set is the JAX package's with its defaults
+(`CSBSR_MERGED_SR=1`, `CSBSR_DENSE_IKC=0`); the convs it runs in the compute
+dtype are built with `keep_float` here (KBPN's VGG features, stage-merge and
+reconstruction convs, the IKC kernel-map branch, CrackFormer's q/k/v).
+
 Params are float32. Every layer computes in the dtype of its input (the
 model's compute dtype) and casts its weights to it, as the flax modules do
 with `dtype=`. BatchNorm and Dropout follow flax's train-mode semantics.
@@ -28,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.quant import int8_conv, int8_conv_transpose, quantize_weight
 from ..utils.device import upcast
 
 # -------------------------------------------------------------------- init
@@ -196,6 +205,127 @@ def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+# ------------------------------------------------------------ int8 serving
+
+
+def keep_float(module: nn.Module) -> nn.Module:
+    """Mark every conv in `module` as one that `int8_serve` leaves in the
+    compute dtype (the JAX package computes it with a plain lax conv)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.int8_exempt = True
+    return module
+
+
+class _Int8Mixin:
+    """Eval-mode int8 compute for a conv module. `act_amax` (a float32
+    scalar buffer, not in the state dict) holds the calibrated abs-max of the
+    quantized input: None serves with dynamic scales. With `calibrating` set
+    the float conv runs and `act_amax` keeps the running maximum of |input|.
+    Train mode runs the float conv, as the JAX package's train path does."""
+
+    def _init_int8(self, quant_channels: Optional[int] = None):
+        self.register_buffer("act_amax", None, persistent=False)
+        self.calibrating = False
+        # only the first `quant_channels` input channels run int8 (KBPN's
+        # SFT conv0: the condition half stays in the compute dtype)
+        self.quant_channels = quant_channels
+        self._qweight = (None, None)  # (weight version, quantize_weight result)
+
+    def _quantized_weight(self, w, out_axis):
+        """quantize_weight(w), kept until the weight changes (the JAX package
+        folds it into the compiled program). An inference tensor has no
+        version counter, and inside inference mode it is updated in place
+        unseen (a load_state_dict there), so its quantization is not kept."""
+        wt = self.weight
+        if wt.is_inference():
+            self._qweight = (None, None)
+            return quantize_weight(w, out_axis)
+        key = (wt.data_ptr(), wt.device, wt._version)
+        if self._qweight[0] != key:
+            self._qweight = (key, quantize_weight(w, out_axis))
+        return self._qweight[1]
+
+    def forward(self, x):
+        qc = self.quant_channels
+        if self.calibrating:
+            amax = (x if qc is None else x[:, :qc]).detach().abs().amax().float()
+            self.act_amax = amax if self.act_amax is None else torch.maximum(self.act_amax, amax)
+        if self.training or self.calibrating:
+            return super().forward(x)
+        y = self._int8(x if qc is None else x[:, :qc],
+                       self.weight if qc is None else self.weight[:, :qc])
+        if qc is not None:
+            y = y + F.conv2d(x[:, qc:], self.weight[:, qc:].to(x.dtype), None, self.stride,
+                             self.padding, self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
+
+
+class Int8Conv2d(_Int8Mixin, Conv2d):
+    def _int8(self, x, w):
+        return int8_conv(x, w, self.stride, self.padding, self.dilation, self.groups,
+                         self.act_amax, qweight=self._quantized_weight(w, 0))
+
+
+class Int8ConvTranspose2d(_Int8Mixin, ConvTranspose2d):
+    def _int8(self, x, w):
+        return int8_conv_transpose(x, w, self.stride, self.padding, self.act_amax,
+                                   qweight=self._quantized_weight(w, 1))
+
+
+def _to_int8(conv, quant_channels=None):
+    """An int8 module sharing `conv`'s parameters."""
+    cls = Int8ConvTranspose2d if isinstance(conv, nn.ConvTranspose2d) else Int8Conv2d
+    q = cls(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+            groups=conv.groups, bias=conv.bias is not None, dilation=conv.dilation,
+            device="meta")
+    q.weight, q.bias = conv.weight, conv.bias
+    q._init_int8(quant_channels)
+    return q.train(conv.training)
+
+
+def int8_serve(model: nn.Module, scope: str = "all") -> nn.Module:
+    """Swap `model`'s convs for int8 ones in place and return it. `scope`
+    is the JAX package's CSBSR_INT8_SCOPE: "all" quantizes every conv but
+    the `keep_float` ones, "narrow" only stride-1 convs of kernel <= 3 (no
+    transposed conv). A conv with a `quant_split` attribute on its parent
+    (KBPN's SFT layer: name -> feature channels) quantizes only that many
+    input channels, whatever the scope. Already swapped convs stay as they are."""
+    if scope not in ("all", "narrow"):
+        raise ValueError(f"int8 scope {scope!r}: 'all' or 'narrow'")
+    for parent in list(model.modules()):
+        split = getattr(parent, "quant_split", {})
+        for name, child in list(parent.named_children()):
+            if isinstance(child, _Int8Mixin) or getattr(child, "int8_exempt", False):
+                continue
+            if name in split:
+                setattr(parent, name, _to_int8(child, split[name]))
+            elif type(child) in (Conv2d, nn.Conv2d) and (
+                    scope == "all" or (max(child.kernel_size) <= 3 and child.stride == (1, 1))):
+                setattr(parent, name, _to_int8(child))
+            elif type(child) in (ConvTranspose2d, nn.ConvTranspose2d) and scope == "all":
+                setattr(parent, name, _to_int8(child))
+    return model
+
+
+def int8_modules(model: nn.Module):
+    """(name, module) of every int8 conv of `model`."""
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, _Int8Mixin)]
+
+
+def load_act_amax(model: nn.Module, amax) -> None:
+    """Set the int8 convs' `act_amax` from {module name: scalar}; the names
+    must be exactly the model's int8 convs."""
+    mods = dict(int8_modules(model))
+    if set(mods) != set(amax):
+        missing, unknown = sorted(set(mods) - set(amax)), sorted(set(amax) - set(mods))
+        raise KeyError(f"act_amax names differ from the int8 convs: missing {missing[:5]}, "
+                       f"unknown {unknown[:5]}")
+    for name, value in amax.items():
+        mods[name].act_amax = torch.as_tensor(value, dtype=torch.float32,
+                                              device=mods[name].weight.device).reshape(())
 
 
 # ------------------------------------------------- DBPN back-projection blocks

@@ -31,8 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import (Conv2d, Dropout, GroupNorm, conv2d, lecun_normal_, max_pool_with_indices,
-                     max_unpool)
+from .blocks import (Conv2d, Dropout, GroupNorm, conv2d, keep_float, lecun_normal_,
+                     max_pool_with_indices, max_unpool)
 from .unet import ConvRelu
 from ..ops.resize import resize
 
@@ -83,8 +83,9 @@ class LocalSABlock(nn.Module):
         g = generator
         self.heads, self.kk, self.vv, self.m = heads, k, channels // heads, m
 
-        def conv_gn(c):
-            return nn.Sequential(conv2d(channels, c, 1, bias=False, generator=g), _gn(c))
+        def conv_gn(c):  # float in int8 serving, as in the JAX package
+            return keep_float(nn.Sequential(conv2d(channels, c, 1, bias=False, generator=g),
+                                            _gn(c)))
 
         self.queries = conv_gn(k * heads)
         self.keys = conv_gn(k)

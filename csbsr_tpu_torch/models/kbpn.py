@@ -7,6 +7,12 @@ restructurings with identical math and param layout). Only the flagship
 variant is ported: SUM_LR_ERROR_POS=HR, no pixel shuffle, kernel SFT on,
 bicubic kernel upsampling (ZERO_PAD_KERNEL=False), 3 channels.
 
+In int8 serving the convs that the JAX package's merged / banded forms
+compute with plain lax convs stay in the compute dtype (`keep_float`): the
+VGG features, the stage-merge 1x1 of each DownBlock, sr_reconst and
+output_conv, the kernel-map branch fe_kernel, fe_cat0 and fe_cat2; the SFT
+layers' conv0 quantizes its feature channels only.
+
 Blur kernels flow as (B, k_out^2) vectors and stay float32 (float64 in a
 float64 run); the feature maps run in the input's compute dtype. Tensors are NCHW.
 """
@@ -16,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import ConvBlock, DeconvBlock, SFTLayer, conv2d
+from .blocks import ConvBlock, DeconvBlock, SFTLayer, conv2d, keep_float
 from ..ops.blur import batch_blur
 from ..ops.resize import resize
 from ..utils.device import upcast
@@ -71,10 +77,11 @@ class KernelPredictorLikeIKC(nn.Module):
             cb(3, kc, 3, 1, "relu"), cb(kc, red, 1, 0, "lrelu"), cb(red, red, 3, 1, "lrelu"),
             cb(red, red, 3, 1, "lrelu"), cb(red, kc, 3, 1, "lrelu"),
         )
-        self.fe_kernel = nn.Sequential(cb(cond, kc, 3, 1, "lrelu"), cb(kc, kc, 3, 1, "lrelu"))
+        self.fe_kernel = keep_float(nn.Sequential(cb(cond, kc, 3, 1, "lrelu"),
+                                                  cb(kc, kc, 3, 1, "lrelu")))
         self.fe_cat = nn.Sequential(
-            cb(2 * kc, red, 1, 0, "lrelu"), cb(red, red, 3, 1, "lrelu"),
-            cb(red, kc, 3, 1, None),
+            keep_float(cb(2 * kc, red, 1, 0, "lrelu")), cb(red, red, 3, 1, "lrelu"),
+            keep_float(cb(red, kc, 3, 1, None)),
         )
 
     def forward(self, sr, pre_kernel_vec):
@@ -117,7 +124,8 @@ class KBPNDownBlock(nn.Module):
     def __init__(self, in_ch, num_filter, k, s, p, generator=None):
         super().__init__()
         g = generator
-        self.conv = _prelu_block(ConvBlock, in_ch, num_filter, 1, 1, 0, bias=True, generator=g)
+        self.conv = keep_float(_prelu_block(ConvBlock, in_ch, num_filter, 1, 1, 0, bias=True,
+                                            generator=g))
         self.down_conv1 = _prelu_block(ConvBlock, num_filter, num_filter, k, s, p, generator=g)
         self.down_conv2 = _prelu_block(DeconvBlock, num_filter, num_filter, k, s, p, generator=g)
         self.down_conv3 = _prelu_block(ConvBlock, num_filter, num_filter, k, s, p, generator=g)
@@ -131,7 +139,13 @@ class KBPNDownBlock(nn.Module):
 
 
 class SFTLayerKBPN(SFTLayer):
-    """The SFT layer with the kernel vector broadcast to the condition map."""
+    """The SFT layer with the kernel vector broadcast to the condition map.
+    In int8 serving each conv0 quantizes only its feature channels (the JAX
+    package's _SplitCondConv3x3: amax over the features alone)."""
+
+    def __init__(self, feat_ch, cond_ch, generator=None):
+        super().__init__(feat_ch, cond_ch, generator)
+        self.quant_split = {"SFT_scale_conv0": feat_ch, "SFT_shift_conv0": feat_ch}
 
     def forward(self, features, kernel_vec):
         b, _, h, w = features.shape
@@ -149,8 +163,8 @@ class KBlock(nn.Module):
         super().__init__()
         g = generator
         self.ksize_output, self.scale_factor = ksize_output, scale_factor
-        self.sr_reconst = ConvBlock(stage * num_filter, 3, 3, 1, 1, activation=None,
-                                    generator=g)
+        self.sr_reconst = keep_float(ConvBlock(stage * num_filter, 3, 3, 1, 1, activation=None,
+                                               generator=g))
         self.kernel_predictor = KernelPredictorLikeIKC(estimate_ksize, ksize_output, generator=g)
         self.up_conv1 = _prelu_block(DeconvBlock, 3, num_filter, k, s, p, generator=g)
 
@@ -211,15 +225,15 @@ class KBPN(nn.Module):
         layers = []
         for i in range(4):
             layers += [conv2d(chans[i], chans[i + 1], 3, padding=1, generator=g), nn.ReLU()]
-        self.feat = nn.Sequential(*layers)
+        self.feat = keep_float(nn.Sequential(*layers))
         self.predictor = PredictorWithGAP(128, md_ch, estimate_ksize, ksize_output, generator=g)
         self.back_projection_stages = nn.ModuleList([
             KBPNStage(st, st == num_stages, 128 if st == 1 else (st - 1) * md_ch, md_ch,
                       k, s, p, estimate_ksize, ksize_output, scale_factor, generator=g)
             for st in range(1, num_stages + 1)
         ])
-        self.output_conv = ConvBlock(num_stages * md_ch, 3, 3, 1, 1, activation=None,
-                                     generator=g)
+        self.output_conv = keep_float(ConvBlock(num_stages * md_ch, 3, 3, 1, 1, activation=None,
+                                                generator=g))
 
     def forward(self, x: torch.Tensor, kernel_gt_vec=None, use_gt_kernel=False,
                 compute_dtype: torch.dtype = torch.float32):

@@ -17,6 +17,10 @@ conv HWIO -> OIHW, the same permutation for transposed convs
 ((kh, kw, O, I) -> (I, O, kh, kw)), Dense (I, O) -> (O, I), PReLU scalar
 alpha -> shape (1,), CrackFormer's positional embedding (m, m, 1, kk) ->
 (kk, 1, 1, m, m).
+
+`quant_from_jax` carries a calibrated `quant` collection (one `act_amax`
+per int8 conv) to the port's conv module names, through the same
+translators, for `models.blocks.load_act_amax`.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch
 
 __all__ = ["translate_kbpn", "translate_dbpn", "translate_unet16", "translate_pspnet",
            "translate_hrnet_ocr", "translate_crackformer", "convert_tree",
-           "state_dict_from_jax", "drop_unused_reference_keys"]
+           "state_dict_from_jax", "quant_from_jax", "drop_unused_reference_keys"]
 
 _KIND = {"kernel": "kernel", "bias": "bias", "scale": "scale", "alpha": "alpha",
          "mean": "mean", "var": "var", "embedding": "embedding"}
@@ -351,6 +355,22 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None) -> Dic
         sd.update({f"{top}.{k}": v for k, v in sub.items()})
     return sd
 
+
+
+def quant_from_jax(quant: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's `quant` collection -> {port conv module name:
+    float32 act_amax}: a conv's amax sits where its kernel would, so
+    `<module>/act_amax` translates as `<module>/kernel` does, less `.weight`."""
+    out: Dict[str, torch.Tensor] = {}
+    for top, tree in quant.items():
+        translate = _translator_for(top, tree)
+        for path, leaf in _flatten(tree):
+            key = translate(path[:-1] + ("kernel",), "kernel")
+            if key is None or not key.endswith(".weight"):
+                raise KeyError(f"no torch conv for JAX quant leaf {'/'.join(map(str, path))}")
+            out[f"{top}.{key[:-len('.weight')]}"] = torch.tensor(float(np.asarray(leaf)),
+                                                                 dtype=torch.float32)
+    return out
 
 # parameters a released reference checkpoint holds that its forward never
 # uses: CrackFormer's Down3/4/5 declare a third block and call the second twice

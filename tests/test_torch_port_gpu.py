@@ -9,7 +9,12 @@ Tolerance: exact (`torch.equal`); see csbsr_tpu_torch/ops/minplus.py. The
 recipes of configs/ other than the flagship (one forward each, full width,
 2 KBPN stages, LR 16 x 16) are held against the same weights on the CPU with
 TF32 off, in float32 to 1e-3 of each output's largest |value| (the bound
-`chip_smoke.py` holds the flagship to) and in float64 to 1e-6.
+`chip_smoke.py` holds the flagship to) and in float64 to 1e-6. The int8
+convolution's `_int_mm` route (ops/quant.py) equals its float64 plain
+version exactly (`torch.equal` on the int32 accumulators) at the serving
+configurations: 3x3, 1x1, 7x7 s2, dilated, k8 s4, grouped, and the k8 s4 p2
+and k4 s2 p1 transposed convs. The int8 quantizers give the CPU's int8
+values and float32 scales exactly.
 The shapes are the main paths' ((99, 449, 449) the HD bank, (1, 449, 449)
 its GT border, (6, 1, 224, 224) the training SDF) and the edges of the
 kernel's launch plan: one row, ragged row and column groups, k split over
@@ -110,3 +115,62 @@ def test_recipe_forward_on_cuda_equals_cpu(recipe, detector, dtype):
         scale = float(ref.abs().max())
         err = float((outs["cuda"][key].cpu() - ref).abs().max())
         assert (err / scale if scale else err) <= TOLS[dtype], (key, err, scale)
+
+
+# (kind, Cin, Cout, k, stride, padding, dilation, groups, N, H): the int8
+# conv configurations of the six recipes' serving paths, at small sizes
+INT8_CASES = [("conv", 128, 128, 3, 1, 1, 1, 1, 3, 14), ("conv", 3, 64, 3, 1, 1, 1, 1, 2, 16),
+              ("conv", 64, 1, 1, 1, 0, 1, 1, 2, 16), ("conv", 3, 64, 7, 2, 3, 1, 1, 2, 32),
+              ("conv", 128, 128, 3, 1, 2, 2, 1, 2, 8), ("conv", 128, 128, 8, 4, 2, 1, 1, 2, 32),
+              ("conv", 64, 64, 3, 1, 1, 1, 16, 2, 8), ("conv", 3, 32, 3, 2, 1, 1, 1, 1, 4),
+              ("deconv", 128, 128, 8, 4, 2, 1, 1, 2, 8), ("deconv", 3, 128, 8, 4, 2, 1, 1, 2, 8),
+              ("deconv", 64, 32, 4, 2, 1, 1, 1, 2, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT8_CASES, ids=[str(c) for c in INT8_CASES])
+def test_int8_conv_equals_plain_version_on_cuda(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the int8 product's CUDA route runs only on the card")
+    from csbsr_tpu_torch.ops import quant
+
+    kind, cin, cout, k, s, p, d, g, n, h = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case[1:]))
+    xq = torch.randint(-127, 128, (n, cin, h, h + 3), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wshape = (cin, cout, k, k) if kind == "deconv" else (cout, cin // g, k, k)
+    wq = torch.randint(-127, 128, wshape, generator=gen, device="cuda", dtype=torch.int8)
+    before = dict(quant.PRODUCTS)
+    if kind == "deconv":
+        got, ref = (quant.conv_transpose_acc(xq, wq, s, p, route=r) for r in (None, "plain"))
+    else:
+        got, ref = (quant.conv_acc(xq, wq, s, p, d, g, route=r) for r in (None, "plain"))
+    torch.cuda.synchronize()
+    assert sum(quant.PRODUCTS.values()) > sum(before.values())  # the CUDA default: _int_mm
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64],
+                         ids=["float32", "bfloat16", "float64"])
+def test_int8_quantizers_on_cuda_equal_cpu(dtype):
+    """The int8 values and float32 scales of quantize_weight and quantize_act
+    are the CPU's exactly (the CPU tests hold those to the JAX package's): a
+    scale one ulp off on the card moves int8 levels, and with them outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: compares the quantizers on the card with the CPU")
+    from csbsr_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn(4096, 16, 3, 3, generator=gen) * torch.rand(4096, 1, 1, 1, generator=gen)
+    w[7] = 0.0  # an all-zero output channel: scale 1/127
+    for axis, wt in ((0, w), (1, w.transpose(0, 1))):
+        q_c, s_c = quant.quantize_weight(wt.cuda().to(dtype), axis)
+        q_p, s_p = quant.quantize_weight(wt.to(dtype), axis)
+        assert torch.equal(q_c.cpu(), q_p) and torch.equal(s_c.cpu(), s_p)
+    x = (torch.randn(2, 32, 16, 16, generator=gen) * 3).to(dtype)
+    for amax in [None, 0.0, *(torch.rand(512, generator=gen) * 10).tolist()]:
+        a = None if amax is None else torch.tensor(amax)
+        q_c, s_c = quant.quantize_act(x.cuda(), a)
+        q_p, s_p = quant.quantize_act(x, a)
+        assert torch.equal(q_c.cpu(), q_p) and torch.equal(s_c.cpu(), s_p), amax
