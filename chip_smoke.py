@@ -20,8 +20,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   4. kernels    each kernel against its plain PyTorch version on the card at
                 the shapes of the main path and the edges of its launch plan
                 (min-plus: torch.equal), plus the EDT against a brute-force
-                distance on a small mask; at the three main-path shapes
-                (99, 449, 449), (1, 449, 449) and (6, 1, 224, 224) the
+                distance on a small mask; at the four main-path shapes
+                (99, 449, 449), (1, 449, 449), (6, 1, 224, 224) and the
+                inverse model's LR target (6, 1, 56, 56) the
                 kernel's and the plain version's device times (CUDA events,
                 the launch queued behind a sleep on the card), the kernel's
                 duration in a profiler trace, and that of a launch with an
@@ -65,8 +66,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 set to none; the PSPNet_BlurSkip recipe has none and trains
                 its ladder alone); the first step is the warm-up;
                 launch counts reset just before and read just after each
-                path (2 min-plus launches per image and per step). One JSON
-                line per recipe: images/s, steps/s, peak memory, launches.
+                path (2 min-plus launches per image and per step). The wf
+                recipe (the flagship with the failure-oriented SR weight)
+                takes one step of the train step at 30002 instead, where
+                that weight acts. One JSON line per recipe: images/s,
+                steps/s, peak memory, launches.
   8. serve      the serving half of the test CLI, int8 serving included:
                 the flagship at full width through engine/inference.inference_tti
                 on TTI_IMAGES synthetic unlabelled 448x448 PNGs made from the
@@ -96,6 +100,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 shapes of its largest call (the 896x896 image's 16 patches,
                 TTI's 12-patch chunk) and its smallest (one patch), with the
                 weight of the module that made that call.
+  9. surface    (run after the zoo) the rest of the training surface, each
+                variant of SURFACE at full width from the seed's random
+                weights, bf16, batch 6 of 224x224 crops, through do_train:
+                sr_pretrain (DATASET.ONLY_IMAGES on PNGs it writes; 3 steps
+                from iteration 1, then one at 10001, the kernel window),
+                whose SR net it saves under the name do_train looks for;
+                joint_from_pretrain (the flagship loading that file from a
+                temporary weights directory: its SR net equal to the saved
+                one before step 1; 2 steps); seg_only_x1, bicubic, inverse
+                (DBPN + PSPNet, MODEL.SR_SEG_INV: its SDF at (6, 1, 56, 56)),
+                sgd, blur_photometric (BLUR.MODE all_rand, RandomResizedCrop
+                and PhotometricDistort over PNG pairs it writes) and
+                crackformer_rcf (CrackFormerLoss), 3 joint-phase steps each.
+                Launch counts reset just before and read just after each
+                variant's steps (0 min-plus launches for sr_pretrain and
+                crackformer_rcf, 2 per step for the others). sr_pretrain and
+                inverse first take check_surface_step_against_cpu. One JSON
+                line per variant (images/s after the first step, peak
+                memory, launches, first and last loss), then the phase's
+                seconds.
 
 Then the `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 It exits without a result when CUDA is absent or the package is missing.
@@ -128,13 +152,21 @@ BUILT = ("minplus", "rates")  # csbsr_tpu_torch/csrc/<name>.cu
 # k, the widest row) and all-empty slices (the 1e9 cap)
 CHECK_SHAPES = (((2, 1, 33, 47), 0.02), ((3, 128, 128), 0.02), ((2, 33, 2100), 0.02),
                 ((1, 40, 50), 0.0), ((99, 449, 449), 0.02), ((1, 449, 449), 0.02),
-                ((6, 1, 224, 224), 0.02), ((6, 1, 224, 224), 0.0), ((1, 1, 1), 0.5),
+                ((6, 1, 224, 224), 0.02), ((6, 1, 224, 224), 0.0), ((6, 1, 56, 56), 0.02),
+                ((1, 1, 1), 0.5),
                 ((7, 31), 0.1), ((9, 33), 0.1), ((3, 2896), 0.01), ((64, 2896), 0.01))
-TIMED_SHAPES = ((99, 449, 449), (1, 449, 449), (6, 1, 224, 224))  # HD bank, GT border, SDF
+# HD bank, GT border, train SDF, the inverse model's LR train SDF
+TIMED_SHAPES = ((99, 449, 449), (1, 449, 449), (6, 1, 224, 224), (6, 1, 56, 56))
 ZOO = (("dbpn_pspnet", "config_cssr_pspnet"), ("unet16", "config_csbsr_unet"),
        ("pspnet_blurskip", "config_csbsr_pspnet_blurskip"),
-       ("crackformer", "config_csbsr_crackformer"), ("hrnet_ocr", "config_csbsr_hrnet"))
+       ("crackformer", "config_csbsr_crackformer"), ("hrnet_ocr", "config_csbsr_hrnet"),
+       ("wf", "config_csbsr_pspnet_wf"))
 ZOO_IMAGES, ZOO_STEPS = 2, 3
+# a zoo recipe trained at these iterations by the train step (not do_train
+# from iteration 1): wf's failure-oriented SR weight acts from iteration >
+# ORIENTED_WEIGHT_ITER (30001)
+ZOO_ITERATIONS = {"wf": (30002,)}
+SERVED_ZOO = tuple(z for z in ZOO if z[0] != "wf")  # wf serves the flagship's model
 TTI_IMAGES, TTI_SIZE, TTI_PATCH, TTI_CHUNK = 3, 448, 64, 12  # the CLI's 64 and batch_size
 LATENCY_ITERS = 10
 HEAD_LOGITS = ("cls_head", "aux_head")  # HRNet-OCR's heads, before resize and sigmoid
@@ -414,7 +446,8 @@ def phase_train(dev):
         t0 = time.perf_counter()
         state = do_train(cfg, model, loop_batches, None, log_step=1, save_step=0,
                          eval_step_every=0, num_train_ds=n_train,
-                         log_fn=lambda line: log_t.append(time.perf_counter()))
+                         log_fn=lambda line: line.startswith("===> Iter") and log_t.append(
+                             time.perf_counter()))
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             losses = [{"iteration": r["step"], **{k: r[k] for k in ("loss", "seg_loss", "sr_loss")}}
                       for r in map(json.loads, f)]
@@ -608,25 +641,26 @@ def check_train_step_against_cpu(model, cfg, pc, batch, weights):
             "by_iteration": report}
 
 
-def zoo_cfg(recipe: str):
+def zoo_cfg(recipe: str, joint: bool = True):
+    """configs/<recipe>.yaml with the seed; with `joint`, no pretrain windows."""
     from csbsr_tpu_torch.config import get_cfg_defaults
 
     cfg = get_cfg_defaults()
     cfg.merge_from_file(os.path.join(REPO, "configs", f"{recipe}.yaml"))
-    cfg.merge_from_list(ZOO_WINDOWS)
+    if joint:
+        cfg.merge_from_list(ZOO_WINDOWS)
     cfg.SEED = SEED
     return cfg
 
 
 def phase_zoo(dev, name, recipe):
     """One recipe of configs/ at full width: eval, card vs CPU, train."""
-    import tempfile
-
     from csbsr_tpu_torch.data import IterationBasedLoader, SubsetView
     from csbsr_tpu_torch.data.synthetic import SyntheticCrackSet
     from csbsr_tpu_torch.engine.inference import score_for_ss
     from csbsr_tpu_torch.engine.phase import compute_phase, phase_config_from_cfg
-    from csbsr_tpu_torch.engine.trainer import do_train
+    from csbsr_tpu_torch.engine.train_state import create_train_state
+    from csbsr_tpu_torch.engine.trainer import build_train_step
     from csbsr_tpu_torch.models import model_from_cfg
     from csbsr_tpu_torch.ops import cuda_build
     from csbsr_tpu_torch.train import build_datasets, split_and_eval_batches
@@ -668,30 +702,35 @@ def phase_zoo(dev, name, recipe):
                                   num_workers=4)
     batches = list(loader)
     params_before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    log_t = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as out_dir:
-        cfg.OUTPUT_DIR = out_dir
-        cuda_build.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        do_train(cfg, model, batches, None, log_step=1, save_step=0, eval_step_every=0,
-                 num_train_ds=len(train_idx), log_fn=lambda line: log_t.append(time.perf_counter()))
-        torch.cuda.synchronize()
-        train_launches = dict(cuda_build.LAUNCHES)
-        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-            losses = [{k: r[k] for k in ("step", "loss", "seg_loss", "sr_loss")}
-                      for r in map(json.loads, f)]
+    cuda_build.LAUNCHES.clear()
+    iterations = ZOO_ITERATIONS.get(name)
+    if iterations is None:  # do_train from iteration 1
+        iterations = range(1, ZOO_STEPS + 1)
+        step_s, losses, _ = _do_train_steps(cfg, model, batches, len(train_idx))
+    else:  # its train step at these iterations
+        state = create_train_state(cfg, model, pc)
+        step, step_s, losses = build_train_step(cfg, pc), [], []
+        for it, hb in zip(iterations, batches):
+            state.step = it - 1
+            t0 = time.perf_counter()
+            m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in hb.items()})
+            losses.append({"step": it, **{k: float(m[k]) for k in ("loss", "seg_loss",
+                                                                      "sr_loss")}})
+            step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    train_launches = dict(cuda_build.LAUNCHES)
     train_peak = torch.cuda.max_memory_allocated() / 1e9
-    step_s = [log_t[0] - t0] + [t1 - t0 for t0, t1 in zip(log_t, log_t[1:])]
-    phases = [compute_phase(it, pc) for it in range(1, ZOO_STEPS + 1)]
+    n_steps = len(losses)
+    phases = [compute_phase(it, pc) for it in iterations]
     if any(p["in_sr_pretrain"] or p["in_seg_pretrain"] or p["use_gt_kernel"] for p in phases):
         raise AssertionError(f"{name}: a zoo step is not in the joint phase")
     if any(not all(math.isfinite(r[k]) for k in ("loss", "seg_loss", "sr_loss")) for r in losses):
         raise AssertionError(f"{name}: non-finite train losses {losses}")
-    if train_launches.get("minplus_rows", 0) != 2 * ZOO_STEPS:
-        raise AssertionError(f"{name}: expected {2 * ZOO_STEPS} minplus launches in "
-                             f"{ZOO_STEPS} train steps, got {train_launches}")
+    if train_launches.get("minplus_rows", 0) != 2 * n_steps:
+        raise AssertionError(f"{name}: expected {2 * n_steps} minplus launches in "
+                             f"{n_steps} train steps, got {train_launches}")
     moved = {n for n, p in model.named_parameters() if not torch.equal(p, params_before[n])}
     if cfg.MODEL.DETECTOR_TYPE.startswith("PSPNet_BlurSkip"):
         if not moved or any(".blur_skip." not in n for n in moved):
@@ -699,7 +738,7 @@ def phase_zoo(dev, name, recipe):
     elif not any(n.startswith("segmentation_model.") for n in moved):
         raise AssertionError(f"{name}: the joint step left the seg head unchanged")
     eval_s = [r["seconds"] for r in rows]
-    timed = step_s[1:]
+    timed = step_s[1:] or [math.nan]
     emit({"phase": "zoo", "recipe": f"configs/{recipe}.yaml", "name": name,
           "model": f"{cfg.MODEL.SR} + {cfg.MODEL.DETECTOR_TYPE}",
           "config": f"random init, seed {SEED}, bf16 compute, full width",
@@ -709,7 +748,7 @@ def phase_zoo(dev, name, recipe):
                    "summary": summary, "peak_mem_gb": eval_peak, "launches": eval_launches,
                    "minplus_launches_per_image": 2},
           "vs_cpu": cpu_check,
-          "train": {"batch": b, "crop_hw": list(cfg.INPUT.IMAGE_SIZE), "steps": ZOO_STEPS,
+          "train": {"batch": b, "crop_hw": list(cfg.INPUT.IMAGE_SIZE), "steps": n_steps,
                     "step_s": step_s, "steps_per_s_after_first": len(timed) / sum(timed),
                     "images_per_s_after_first": b * len(timed) / sum(timed),
                     "phases": [{"iteration": p["iteration"], "sr_pretrain": p["in_sr_pretrain"],
@@ -720,6 +759,276 @@ def phase_zoo(dev, name, recipe):
     del model
     torch.cuda.empty_cache()
     return eval_launches, train_launches
+
+
+# the surface phase: name -> (recipe, overrides, steps by do_train from
+# iteration 1, iterations of the train step after them, min-plus launches per
+# step, card-vs-CPU check); every variant but sr_pretrain trains in the joint
+# phase (ZOO_WINDOWS), sr_pretrain in the recipe's GT-kernel and kernel windows
+SURFACE = {
+    "sr_pretrain": ("config_csbsr_pspnet", ["DATASET.ONLY_IMAGES", True], 3, (10001,), 0, True),
+    "joint_from_pretrain": ("config_csbsr_pspnet", [], 2, (), 2, False),
+    "seg_only_x1": ("config_csbsr_pspnet", ["MODEL.SCALE_FACTOR", 1], 3, (), 2, False),
+    "bicubic": ("config_csbsr_pspnet", ["MODEL.SR", "bicubic"], 3, (), 2, False),
+    "inverse": ("config_cssr_pspnet", ["MODEL.SR_SEG_INV", True], 3, (), 2, True),
+    "sgd": ("config_csbsr_pspnet", ["MODEL.OPTIMIZER", "SGD"], 3, (), 2, False),
+    "blur_photometric": ("config_csbsr_pspnet", [
+        "BLUR.MODE", "all_rand", "DATASET.DATA_AUGMENTATION", [
+            ["ConvertFromInts", None],
+            ["RandomResizedCrop", {"scale": [0.5, 1.0], "ratio": [0.75, 1.333]}],
+            ["PhotometricDistort", None], ["RandomMirror", None]]], 3, (), 2, False),
+    "crackformer_rcf": ("config_csbsr_crackformer", ["SOLVER.SEG_LOSS_FUNC", "CrackFormerLoss"],
+                        3, (), 0, False),
+}
+SURFACE_PNGS, SURFACE_PNG_HW = 24, 256  # the PNG sets the phase writes (>= the 224 crop)
+SURFACE_CPU_LR = 16  # the card-vs-CPU step's LR side (HR 64)
+SURFACE_FLOAT32_FLOOR = 1e-2  # see check_surface_step_against_cpu
+
+
+def _write_pngs(root, n, hw, masks: bool):
+    """n random RGB PNGs (and crack-line masks) under root/images (root/masks)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        Image.fromarray((rng.rand(hw, hw, 3) * 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"p{i}.png"))
+        if masks:
+            m = np.zeros((hw, hw), np.uint8)
+            m[rng.randint(8, hw - 8), :] = m[:, rng.randint(8, hw - 8)] = 255
+            Image.fromarray(m, "L").save(os.path.join(root, "masks", f"p{i}.png"))
+    return [os.path.join(root, "images"), os.path.join(root, "masks")]
+
+
+def check_surface_step_against_cpu(cfg, model, it):
+    """One train-mode step (forward, loss, backward; TF32 off, dropout off;
+    no optimizer) of `model`'s current weights on the card and on the host
+    CPU, on a batch of CPU_CHECK_BATCH random images at LR SURFACE_CPU_LR
+    (degraded on the card; the SR-only variant's masks are zero), at
+    iteration `it`, with the limits of check_train_step_against_cpu:
+
+    - float64: the loss to FLOAT64_LOSS_TOL relative and every gradient
+      tensor elementwise to FLOAT64_GRAD_TOL of its largest |value| (floored
+      at 1e-3 of the model's largest |grad|);
+    - float32: the relative error of the loss and, per gradient group, the
+      relative L2 of the gradient from the CPU's float64 ones within
+      FLOAT32_ENVELOPE times the CPU's own float32 distance from them, or
+      SURFACE_FLOAT32_FLOOR. The floor is the float32 accuracy of these
+      gradients, not FLOAT32_FLOOR: on an H100 80GB HBM3 (700 W) the float32
+      SEG group of the inverse model measured 4.1e-3 against the CPU's
+      1.6e-4 (the flagship's train phase reads 0.7-1.6% there), while
+      float64 holds it."""
+    from csbsr_tpu_torch.engine.losses_glue import build_loss_fn
+    from csbsr_tpu_torch.engine.phase import compute_phase, phase_config_from_cfg
+    from csbsr_tpu_torch.engine.train_state import grad_group_ids
+    from csbsr_tpu_torch.engine.trainer import DEGRADE_STREAM, make_degrade_fn, step_generator
+    from csbsr_tpu_torch.models import model_from_cfg
+
+    dev, n = next(model.parameters()).device, CPU_CHECK_BATCH
+    hw = SURFACE_CPU_LR * int(cfg.MODEL.SCALE_FACTOR)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hr = torch.rand((n, 3, hw, hw), generator=gen, device=dev)
+    seg = torch.zeros((n, 1, hw, hw), device=dev)
+    if not cfg.DATASET.ONLY_IMAGES:
+        seg[:, :, hw // 3, :] = seg[:, :, :, hw // 2] = 1.0
+    lr, kernels = make_degrade_fn(cfg)(hr, step_generator(SEED, 0, DEGRADE_STREAM, dev))
+    data = {"card": {"hr": hr, "seg": seg, "lr": lr, "kernel": kernels}}
+    data["cpu"] = {k: v.cpu() for k, v in data["card"].items()}
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    models = {"card": model, "cpu": model_from_cfg(cfg, device="cpu")}
+    phase = compute_phase(it, phase_config_from_cfg(cfg, 100))
+    loss_fn, compute = build_loss_fn(cfg), model.dtype
+    loss, grads = {}, {}
+    for where in ("card", "cpu"):
+        for dtype in (torch.float64, torch.float32):
+            key = f"{where}_{str(dtype)[6:]}"
+            loss[key], grads[key] = _step_grads(models[where], weights, data[where], phase,
+                                                dtype, loss_fn)
+    model.to(torch.float32).load_state_dict(weights)
+    model.dtype = compute
+    ref, bad = grads["cpu_float64"], []
+    floor = 1e-3 * max(float(r.abs().max()) for r in ref.values())
+    elem = {k: float((grads["card_float64"][k] - r).abs().max()) / max(float(r.abs().max()), floor)
+            for k, r in ref.items()}
+    rel = lambda key: abs(loss[key] - loss["cpu_float64"]) / abs(loss["cpu_float64"])
+    bad += [("float64 loss", rel("card_float64"))] if rel("card_float64") > FLOAT64_LOSS_TOL \
+        else []
+    bad += [(f"float64 {k}", e) for k, e in elem.items() if e > FLOAT64_GRAD_TOL]
+    loss32 = {"card_rel": rel("card_float32"), "cpu_rel": rel("cpu_float32")}
+    loss32["limit"] = max(FLOAT32_ENVELOPE * loss32["cpu_rel"], SURFACE_FLOAT32_FLOOR)
+    bad += [("float32 loss", loss32["card_rel"])] if not loss32["card_rel"] <= loss32["limit"] \
+        else []
+    group_of = grad_group_ids(model.named_parameters())
+    by_group = {}
+    for g, gid in (("SR_CORE", 0), ("KERNEL", 1), ("SEG", 2), ("BLURSKIP", 3)):
+        ks = [k for k, v in group_of.items() if v == gid]
+        if not ks:
+            continue
+        card_err = _rel_l2(grads["card_float32"], ref, ks)
+        cpu_err = _rel_l2(grads["cpu_float32"], ref, ks)
+        limit = max(FLOAT32_ENVELOPE * cpu_err, SURFACE_FLOAT32_FLOOR)
+        by_group[g] = {"tensors": len(ks), "card_rel_l2": card_err, "cpu_rel_l2": cpu_err,
+                       "limit": limit}
+        if not card_err <= limit:
+            bad.append((f"float32 group {g}", card_err))
+    if bad:
+        raise AssertionError(f"train step at iteration {it} differs between the card and the "
+                             f"CPU: {bad[:5]}; losses {loss}")
+    return {"iteration": it, "batch": n, "lr_hw": [SURFACE_CPU_LR] * 2, "loss": loss,
+            "float64_loss_rel_err": rel("card_float64"), "float64_loss_tol": FLOAT64_LOSS_TOL,
+            "float64_worst": sorted(((e, k) for k, e in elem.items()), reverse=True)[:3],
+            "float64_grad_tol": FLOAT64_GRAD_TOL, "float32_loss": loss32,
+            "float32_by_group": by_group, "float32_envelope": FLOAT32_ENVELOPE,
+            "float32_floor": SURFACE_FLOAT32_FLOOR}
+
+
+def phase_surface(dev):
+    """The rest of the training surface: SR-only pretraining, joint training
+    from its SR net, the SR-less, bicubic and inverse models, SGD, the
+    all_rand blur with the photometric chain, CrackFormerLoss; full width,
+    random weights from the seed, bf16 compute, batch 6 of 224 crops. One
+    JSON line per variant, then the phase's seconds. Returns the min-plus
+    launch counts of each variant's steps."""
+    import tempfile
+
+    import csbsr_tpu_torch.engine.losses_glue as glue
+    import csbsr_tpu_torch.engine.trainer as trainer
+    from csbsr_tpu_torch.data import IterationBasedLoader, SubsetView
+    from csbsr_tpu_torch.engine.phase import compute_phase, phase_config_from_cfg
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.ops import cuda_build
+    from csbsr_tpu_torch.train import build_datasets, split_and_eval_batches
+    from csbsr_tpu_torch.utils.pretrained import sr_checkpoint_name
+
+    t_start = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pngs = {"pretrain": _write_pngs(os.path.join(tmp, "pretrain"), SURFACE_PNGS,
+                                        SURFACE_PNG_HW, masks=False),
+                "pairs": _write_pngs(os.path.join(tmp, "mass_roads"), SURFACE_PNGS,
+                                     SURFACE_PNG_HW, masks=True)}
+        # sr_pretrain's SR net goes to weights_dir, which joint_from_pretrain
+        # alone reads; the others read an empty directory
+        weights_dir, no_weights = os.path.join(tmp, "weights"), os.path.join(tmp, "none")
+        os.makedirs(weights_dir)
+        os.makedirs(no_weights)
+        saved = {}  # sr_pretrain's state dict
+        for name, (recipe, extra, n_loop, late, per_step, vs_cpu) in SURFACE.items():
+            t0 = time.perf_counter()
+            cfg = zoo_cfg(recipe, joint=name != "sr_pretrain")
+            cfg.merge_from_list(extra)
+            if name in ("sr_pretrain", "blur_photometric"):
+                data_dirs = pngs["pretrain" if name == "sr_pretrain" else "pairs"]
+                cfg.DATASET.TRAIN_IMAGE_DIR, cfg.DATASET.TRAIN_MASK_DIR = data_dirs
+            pool = build_datasets(cfg, synthetic=name not in ("sr_pretrain", "blur_photometric"))
+            train_idx, _ = split_and_eval_batches(cfg, pool, max_eval_batches=1)
+            pc = phase_config_from_cfg(cfg, len(train_idx))
+            b = cfg.SOLVER.BATCH_SIZE
+            batches = list(IterationBasedLoader(SubsetView(pool, train_idx), b,
+                                                n_loop + len(late), seed=cfg.SEED,
+                                                num_workers=4))
+            model = model_from_cfg(cfg, device=dev)
+            report = {"phase": "surface", "variant": name, "recipe": f"configs/{recipe}.yaml",
+                      "overrides": extra, "dataset": type(pool).__name__,
+                      "model": f"{cfg.MODEL.SR} + {cfg.MODEL.DETECTOR_TYPE}"}
+            if vs_cpu:
+                report["vs_cpu"] = check_surface_step_against_cpu(cfg, model, 1)
+            loads, sdf_shapes = {}, []
+            load_sr, sdf = trainer.load_pretrained_sr, glue.boundary_sdf
+
+            def spy_load(cfg_, model_, *a, **k):
+                loads["loaded"] = load_sr(cfg_, model_, *a, **k)
+                loads["equal"] = loads["loaded"] and all(
+                    torch.equal(v, saved[f"sr_model.{k_}"].to(v.device))
+                    for k_, v in model_.sr_model.state_dict().items())
+                return loads["loaded"]
+
+            trainer.load_pretrained_sr = spy_load
+            glue.boundary_sdf = lambda m: sdf_shapes.append(list(m.shape)) or sdf(m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_build.LAUNCHES.clear()
+            try:
+                step_s, losses, state = _do_train_steps(
+                    cfg, model, batches[:n_loop], len(train_idx),
+                    weights_dir=weights_dir if name == "joint_from_pretrain" else no_weights)
+                if late:  # the same run's train step, its counter moved on
+                    step = trainer.build_train_step(cfg, pc)
+                    for it, hb in zip(late, batches[n_loop:]):
+                        state.step = it - 1
+                        m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in hb.items()})
+                        losses.append({"step": it, **{k: float(m[k]) for k in (
+                            "loss", "seg_loss", "sr_loss")}})
+                torch.cuda.synchronize()
+            finally:
+                trainer.load_pretrained_sr, glue.boundary_sdf = load_sr, sdf
+            launches = dict(cuda_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_steps = len(losses)
+            paths[f"surface:{name}"] = launches
+            if any(not all(math.isfinite(r[k]) for k in ("loss", "seg_loss", "sr_loss"))
+                   for r in losses):
+                raise AssertionError(f"surface {name}: non-finite losses {losses}")
+            if launches.get("minplus_rows", 0) != per_step * n_steps:
+                raise AssertionError(f"surface {name}: expected {per_step * n_steps} minplus "
+                                     f"launches in {n_steps} steps, got {launches}")
+            flags = ("in_sr_pretrain", "in_kernel_window", "use_gt_kernel")
+            phases = [{"iteration": r["step"], **{k: compute_phase(r["step"], pc)[k]
+                                                  for k in flags}} for r in losses]
+            if name == "sr_pretrain":
+                if any(r["seg_loss"] != 0.0 for r in losses) or not phases[-1]["in_kernel_window"]:
+                    raise AssertionError(f"sr_pretrain: {losses}, {phases}")
+                saved = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+                torch.save(saved, os.path.join(weights_dir, sr_checkpoint_name(cfg)))
+            if name == "joint_from_pretrain" and not loads.get("equal"):
+                raise AssertionError(f"joint_from_pretrain: the SR net was not the saved one "
+                                     f"before step 1: {loads}")
+            lr_shape = [b, 1] + [v // int(cfg.MODEL.SCALE_FACTOR) for v in cfg.INPUT.IMAGE_SIZE]
+            if name == "inverse" and sdf_shapes != [lr_shape] * n_steps:
+                raise AssertionError(f"inverse: SDF shapes {sdf_shapes}")
+            timed = step_s[1:n_loop] or [math.nan]
+            report.update({
+                "batch": b, "crop_hw": list(cfg.INPUT.IMAGE_SIZE), "steps": n_steps,
+                "step_s": step_s, "images_per_s_after_first": b * len(timed) / sum(timed),
+                "peak_mem_gb": peak, "launches": launches, "minplus_launches_per_step": per_step,
+                "sdf_shapes": sorted({tuple(s_) for s_ in sdf_shapes}),
+                "first_loss": losses[0], "last_loss": losses[-1], "phases": phases,
+                "seconds": time.perf_counter() - t0})
+            if name == "joint_from_pretrain":
+                report["sr_loaded_from_sr_pretrain"] = {
+                    "file": sr_checkpoint_name(cfg), **loads}
+            emit(report)
+            del model
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_start
+    emit({"phase": "surface", "variants": list(SURFACE), "seconds": seconds})
+    return paths
+
+
+def _do_train_steps(cfg, model, batches, num_train_ds, **kw):
+    """do_train over `batches` with logging at every step, in a temporary
+    OUTPUT_DIR: (seconds of each step, each step's losses, the train state),
+    the steps timed between do_train's log calls, which follow each step's
+    loss read-back."""
+    import tempfile
+
+    from csbsr_tpu_torch.engine.trainer import do_train
+
+    log_t = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg.OUTPUT_DIR = out_dir
+        t0 = time.perf_counter()
+        state = do_train(cfg, model, batches, None, log_step=1, save_step=0,
+                         eval_step_every=0, num_train_ds=num_train_ds,
+                         log_fn=lambda line: line.startswith("===> Iter") and log_t.append(
+                             time.perf_counter()), **kw)
+        torch.cuda.synchronize()
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            losses = [{k: r[k] for k in ("step", "loss", "seg_loss", "sr_loss")}
+                      for r in map(json.loads, f)]
+    return [log_t[0] - t0] + [t1 - t0 for t0, t1 in zip(log_t, log_t[1:])], losses, state
 
 
 def check_against_cpu(model, cfg, patch, dtype=torch.float32, hold=True):
@@ -895,7 +1204,7 @@ def phase_serve(dev):
     emit({"phase": "serve", "part": "int8_vs_cpu", **report_cpu})
 
     paths = {}
-    for name, recipe in (("flagship", "config_csbsr_pspnet"),) + ZOO:
+    for name, recipe in (("flagship", "config_csbsr_pspnet"),) + SERVED_ZOO:
         paths[f"serve_int8:{name}"] = _zoo_int8_image(dev, name, recipe, configs)
     exact = check_int8_exactness(dev, configs)
     emit({"phase": "serve", "part": "int8_exactness", "configs": exact,
@@ -1098,6 +1407,7 @@ def main():
     paths = {"eval": phase_main_path(dev), "train": phase_train(dev)}
     for name, recipe in ZOO:
         paths[f"zoo_eval:{name}"], paths[f"zoo_train:{name}"] = phase_zoo(dev, name, recipe)
+    paths.update(phase_surface(dev))
     paths.update(phase_serve(dev))
     for k in kernels:
         by_path = {path: launches.get(k["name"], 0) for path, launches in paths.items()}

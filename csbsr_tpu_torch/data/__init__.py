@@ -1,8 +1,9 @@
-from .datasets import (CrackDataSet, CrackDataSetTest, RetinalDataSetTest, SubsetView,
-                       SyntheticCrackDataSet, TTICrackDataSetTest)
+from .datasets import (CrackDataSet, CrackDataSetTest, MassRoadDataset, RetinalDataSet,
+                       RetinalDataSetTest, SRPretrainDataSet, SubsetView, SyntheticCrackDataSet,
+                       TTICrackDataSetTest)
 from .loader import IterationBasedLoader
 from .transforms import TestTransforms, TrainTransforms
 
-__all__ = ["CrackDataSet", "CrackDataSetTest", "IterationBasedLoader", "RetinalDataSetTest",
-           "SubsetView", "SyntheticCrackDataSet", "TTICrackDataSetTest", "TestTransforms",
-           "TrainTransforms"]
+__all__ = ["CrackDataSet", "CrackDataSetTest", "IterationBasedLoader", "MassRoadDataset",
+           "RetinalDataSet", "RetinalDataSetTest", "SRPretrainDataSet", "SubsetView",
+           "SyntheticCrackDataSet", "TTICrackDataSetTest", "TestTransforms", "TrainTransforms"]

@@ -1,11 +1,13 @@
 """Crack datasets (`csbsr_tpu/data/datasets.py`).
 
-Train side: `CrackDataSet` (jpg image + same-name mask),
-`SyntheticCrackDataSet` (deterministic crack-like strokes, for runs without
-the data) and `SubsetView` (the seeded train/eval split). Their items are
-(image (H, W, 3), mask (H, W, 1)) float32 numpy, exactly the JAX package's;
-the loader stacks them into NCHW batches. Degradation runs on the device in
-the train step.
+Train side: `CrackDataSet` (jpg image + same-name mask), `RetinalDataSet`
+(png pairs, the 0/1 mask scaled x255 before the /255), `MassRoadDataset`
+(png pairs), `SRPretrainDataSet` (png images alone, a zero mask, for SR-only
+pretraining), `SyntheticCrackDataSet` (deterministic crack-like strokes, for
+runs without the data) and `SubsetView` (the seeded train/eval split). Their
+items are (image (H, W, 3), mask (H, W, 1)) float32 numpy, exactly the JAX
+package's; the loader stacks them into NCHW batches. Degradation runs on
+the device in the train step.
 
 Test side: `CrackDataSetTest` reads the GT image and mask, the precomputed
 blurred LR and the GT kernel (under <blur_dir>/<name>/{lr_images,kernels})
@@ -42,11 +44,13 @@ def _chw(a: np.ndarray) -> np.ndarray:
 
 
 class CrackDataSet:
-    """Train dataset: <image_dir>/*.jpg with the same-name mask in seg_dir."""
+    """Train dataset: <image_dir>/*.jpg with the same-name mask in seg_dir
+    (`pattern` and the mask's gain before the transforms per subclass)."""
+    pattern, mask_gain = "*.jpg", 1
 
     def __init__(self, cfg, image_dir, seg_dir, transforms: TrainTransforms):
         self.image_dir, self.seg_dir = image_dir, seg_dir
-        self.fnames: List[str] = sorted(p.name for p in Path(image_dir).glob("*.jpg"))
+        self.fnames: List[str] = sorted(p.name for p in Path(image_dir).glob(self.pattern))
         self.transforms = transforms
 
     def __len__(self):
@@ -55,9 +59,36 @@ class CrackDataSet:
     def get(self, i: int, rng: np.random.RandomState):
         fname = self.fnames[i]
         img = _imread(os.path.join(self.image_dir, fname))
-        seg = _imread(os.path.join(self.seg_dir, fname))[:, :, :1]
+        seg = _imread(os.path.join(self.seg_dir, fname))[:, :, :1] * self.mask_gain
         img, seg = self.transforms(img, seg, rng)
         return img.astype(np.float32), seg.astype(np.float32)
+
+
+class RetinalDataSet(CrackDataSet):
+    """Retinal vessels: png pairs whose 0/1 masks are scaled x255 (in their
+    own dtype, as the JAX package does) before the /255."""
+    pattern, mask_gain = "*.png", 255
+
+
+class MassRoadDataset(CrackDataSet):
+    """Massachusetts roads: png pairs."""
+    pattern = "*.png"
+
+
+class SRPretrainDataSet:
+    """SR-only pretraining: <image_dir>/*.png alone; the mask is zeros."""
+
+    def __init__(self, cfg, image_dir, transforms: TrainTransforms):
+        self.image_dir = image_dir
+        self.fnames: List[str] = sorted(p.name for p in Path(image_dir).glob("*.png"))
+        self.transforms = transforms
+
+    def __len__(self):
+        return len(self.fnames)
+
+    def get(self, i: int, rng: np.random.RandomState):
+        img, _ = self.transforms(_imread(os.path.join(self.image_dir, self.fnames[i])), None, rng)
+        return img.astype(np.float32), np.zeros((*img.shape[:2], 1), np.float32)
 
 
 class SyntheticCrackDataSet:

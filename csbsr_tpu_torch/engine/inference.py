@@ -61,13 +61,17 @@ def _prefetched(dataset):
 
 def build_infer_fn(cfg, model, device):
     """Patched forward: patches (N, 3, h, w) -> (sr, seg, kernel_2d), float32.
-    Eval BN has no batch dependence, so any patch count runs as it is."""
+    Eval BN has no batch dependence, so any patch count runs as it is. At
+    SCALE_FACTOR 1 the patches are the HR image (the test sets read no LR
+    then), so they are also the SR output; the JAX harness passes no SR
+    target there and fails."""
     ksize_out = int(cfg.BLUR.KERNEL_SIZE_OUTPUT)
+    same_size = cfg.MODEL.SCALE_FACTOR == 1
 
     @torch.inference_mode()
     def infer(patches):
         x = torch.as_tensor(patches, dtype=torch.float32, device=device)
-        out = model(x, clip_sr=True)
+        out = model(x, clip_sr=True, sr_targets=x if same_size else None)
         kvec = out["kernel"].float()
         kvec = kvec / kvec.sum(dim=-1, keepdim=True)
         return out["sr"].float(), out["seg"].float(), kvec.reshape(-1, ksize_out, ksize_out)
@@ -116,13 +120,17 @@ def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
     `test_surface_distance` AHD, HD_min, AMSD, MSD_min, on the device or,
     with `surface_distance_device=False`, by the host oracle), and the
     per-threshold arrays (thresholds, aiu, hd, msd; images x thresholds).
-    `on_image(fname, sr_pred, seg_pred, k2d)` sees each image's outputs.
+    PSNR, SSIM and PSNR_kernel are 0.0 for a model with no SR image to
+    score (the inverse model, SCALE_FACTOR 1), as in the JAX harness.
+    `on_image(fname, sr_pred, seg_pred, k2d)` sees each image's outputs
+    (sr_pred None where the SR is not scored).
     """
     from ..metrics.retinal import get_retinal_seg_metrics
     from ..metrics.surface_distance import calc_distance_metrics
 
     dev = resolve_device(device)
     infer = build_infer_fn(cfg, model, dev)
+    sr_metrics = not cfg.MODEL.SR_SEG_INV and cfg.MODEL.SCALE_FACTOR != 1
     thresholds = thresholds_for(test_aiu)
     th_dev = torch.as_tensor(thresholds, device=dev)
 
@@ -134,20 +142,23 @@ def score_for_ss(cfg, model, dataset, *, device=None, test_aiu: bool = True,
             patches, sr_target, seg_target, kernels, fname, img_ushape, seg_ushape = item
             with record_function("eval.model"):
                 sr_p, seg_p, k2d = infer(patches)
-                sr_pred = joint_patch(sr_p, img_ushape).clamp(0.0, 1.0)  # (1, 3, H, W)
+                # (1, 3, H, W); the inverse model's SR is a 1-channel seg map
+                sr_pred = joint_patch(sr_p, img_ushape).clamp(0.0, 1.0) if sr_metrics else None
                 seg_pred = joint_patch(seg_p, seg_ushape)  # (1, 1, H, W)
             sr_t = torch.as_tensor(sr_target, dtype=torch.float32, device=dev)[None]
             seg_t = torch.as_tensor(seg_target, dtype=torch.float32, device=dev)[None]
             kt = torch.as_tensor(kernels, dtype=torch.float32, device=dev)
 
-            with record_function("eval.sr_metrics"):
-                row = {
-                    "fname": fname,
-                    "PSNR_score": float(psnr(sr_pred, sr_t)[0]),
-                    "SSIM_score": float(ssim(sr_pred, sr_t)[0]),
-                    "PSNR(Kernel)_score": float(psnr(k2d.clamp(0, 1)[:, None],
-                                                     kt.clamp(0, 1)[:, None]).mean()),
-                }
+            row = {"fname": fname, "PSNR_score": 0.0, "SSIM_score": 0.0,
+                   "PSNR(Kernel)_score": 0.0}
+            if sr_metrics:
+                with record_function("eval.sr_metrics"):
+                    row.update({
+                        "PSNR_score": float(psnr(sr_pred, sr_t)[0]),
+                        "SSIM_score": float(ssim(sr_pred, sr_t)[0]),
+                        "PSNR(Kernel)_score": float(psnr(k2d.clamp(0, 1)[:, None],
+                                                         kt.clamp(0, 1)[:, None]).mean()),
+                    })
             with record_function("eval.iou"):
                 aiu_rows.append(iou_thresholds(seg_pred, seg_t, th_dev)[0].cpu().numpy())
             row["AIU_scores"] = float(np.mean(aiu_rows[-1]))
@@ -252,9 +263,10 @@ def inference_for_ss(cfg, model, dataset, *, output_dir: str, device=None,
         save_idx = SAVE_IDX if test_aiu else [0]
 
         def on_image(fname, sr_pred, seg_pred, k2d):
-            save_img(output_dir, sr_pred.cpu().numpy(), [fname])
-            if cfg.MODEL.SR == "KBPN":  # the one SR net that predicts a kernel
-                save_kernel(output_dir, k2d[:1].cpu().numpy(), [fname])
+            if sr_pred is not None:
+                save_img(output_dir, sr_pred.cpu().numpy(), [fname])
+                if cfg.MODEL.SR == "KBPN":  # the one SR net that predicts a kernel
+                    save_kernel(output_dir, k2d[:1].cpu().numpy(), [fname])
             seg_np = seg_pred.cpu().numpy()
             for idx in save_idx:
                 save_mask(output_dir, (seg_np > thresholds[idx]).astype(np.float32), [fname],

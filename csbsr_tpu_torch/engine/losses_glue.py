@@ -14,23 +14,35 @@ against the target broadcast to them and scaled by their count; the SDF of
 that broadcast target is the broadcast of the one SDF, so its steps also
 launch the kernel twice.
 
-Ported branches: every seg loss but CrackFormerLoss, the KBPN/L1/L2 SR
-losses, the aux-loss combination (CrackFormer's side maps too), the
-oriented weights, the joint/staged combiner and the pretrain-window
-overrides. DSRL, SR_SEG_INV, ONLY_IMAGES and SCALE_FACTOR 1 / bicubic SR
-raise.
+Branches: every seg loss (CrackFormerLoss too), the KBPN/L1/L2 SR losses,
+the aux-loss combination (CrackFormer's side maps too), the oriented
+weights, the joint/staged combiner and the pretrain-window overrides; and
+  - SR-only pretraining (DATASET.ONLY_IMAGES): the KBPN loss (or L1) alone,
+    seg_loss 0;
+  - the inverse model (MODEL.SR_SEG_INV): the seg loss on the LR map
+    against the target resized by DOWNSCALE_INTERPOLATION (the aux maps
+    likewise; one SDF of the resized target when they share its size), the
+    plain SR loss against the seg target, and staged training on the SR
+    loss;
+  - no SR network (SCALE_FACTOR 1 or SR bicubic): total = the seg loss,
+    without the window overrides (the reference's combiner reaches neither
+    branch that applies them), sr_loss 0.
+DSRL raises.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from ..losses import (bce, bce_dice, binary_dice, boundary_combo_loss, boundary_gdice_loss,
                       boundary_sdf, crack_oriented_exp_weight, crack_oriented_weight,
-                      generalized_boundary_combo_loss, kbpn_loss, l1_per_sample, l2_per_sample,
+                      cross_entropy_loss_rcf, generalized_boundary_combo_loss, kbpn_loss,
+                      l1_per_sample, l2_per_sample,
                       segment_failure_oriented_exp_weight, segment_failure_oriented_weight,
                       weighted_bce)
+from ..ops.resize import resize
 
 __all__ = ["build_seg_loss", "build_loss_fn"]
 
@@ -58,9 +70,8 @@ def build_seg_loss(cfg):
         "Boundary_GDice": lambda p, t, a, s: boundary_gdice_loss(p, t, a, sdf=s),
         "GeneralizedBoundaryCombo": lambda p, t, a, s: generalized_boundary_combo_loss(
             p, t, a, pos_w, loss_w, sdf=s),
+        "CrackFormerLoss": lambda p, t, a, s: cross_entropy_loss_rcf(p, t),
     }
-    if name == "CrackFormerLoss":
-        raise _not_ported("SEG_LOSS_FUNC 'CrackFormerLoss'")
     if name not in losses:
         raise NotImplementedError(name)
     return losses[name], per_pixel
@@ -74,12 +85,6 @@ def build_loss_fn(cfg) -> Callable:
     "kernel": (B, k, k)}; outputs: the joint model's dict."""
     if cfg.MODEL.SR == "DSRL":
         raise _not_ported("the DSRL loss combiner")
-    if cfg.MODEL.SR_SEG_INV:
-        raise _not_ported("MODEL.SR_SEG_INV")
-    if cfg.DATASET.ONLY_IMAGES:
-        raise _not_ported("SR-only pretraining (DATASET.ONLY_IMAGES)")
-    if cfg.MODEL.SCALE_FACTOR == 1 or cfg.MODEL.SR in ("bicubic", "none"):
-        raise _not_ported("training without an SR network")
     seg_loss_fn, seg_per_pixel = build_seg_loss(cfg)
     needs_sdf = cfg.SOLVER.SEG_LOSS_FUNC in _BOUNDARY_LOSSES
     aux_w = float(cfg.SOLVER.SEG_AUX_LOSS_WEIGHT)
@@ -103,6 +108,9 @@ def build_loss_fn(cfg) -> Callable:
     joint = bool(cfg.MODEL.JOINT_LEARNING)
     downscale_method = cfg.SOLVER.DOWNSCALE_INTERPOLATION
     side_maps = cfg.MODEL.DETECTOR_TYPE == "CrackFormer"
+    sr_none = cfg.MODEL.SCALE_FACTOR == 1 or cfg.MODEL.SR == "bicubic"
+    sr_seg_inv = bool(cfg.MODEL.SR_SEG_INV)
+    sr_only = bool(cfg.DATASET.ONLY_IMAGES)
 
     def _co_weight(tgt):
         if w_variant == "linear":
@@ -114,18 +122,47 @@ def build_loss_fn(cfg) -> Callable:
             return segment_failure_oriented_weight(pred, tgt, amp, bias, w_gaus_size, w_gaus_sigma)
         return segment_failure_oriented_exp_weight(pred, tgt, amp)
 
+    def kbpn(outputs, batch, phase, acc, **oriented):
+        return kbpn_loss(
+            outputs["sr"].to(acc), batch["hr"].to(acc), batch["lr"].to(acc),
+            outputs["kernel"].to(acc), batch["kernel"].to(acc), phase["iteration"],
+            ksize=ksize_out, scale_factor=sf, weights=kbpn_w,
+            only_kernel_loss_in_window=phase["in_kernel_window"] if only_kernel else None,
+            downscale_method=downscale_method, **oriented)
+
+    def sr_only_loss(outputs, batch, phase, acc):
+        if sr_loss_name == "KBPN":
+            sr_loss = kbpn(outputs, batch, phase, acc)[0]
+        else:
+            sr_loss = l1_per_sample(outputs["sr"].to(acc), batch["hr"].to(acc))
+        sr_mean = sr_loss.mean()
+        return {"total": sr_mean, "seg_loss": torch.zeros((), dtype=acc, device=sr_mean.device),
+                "sr_loss": sr_mean}
+
     def loss_fn(outputs, batch, phase) -> Dict[str, torch.Tensor]:
         it, alpha = phase["iteration"], phase["alpha"]
         acc = torch.float64 if outputs["sr"].dtype == torch.float64 else torch.float32
+        if sr_only:
+            return sr_only_loss(outputs, batch, phase, acc)
         seg_preds = outputs["seg"].to(acc)
         seg_targets = batch["seg"].to(acc)
 
         # segmentation loss, main + aux
-        sdf = boundary_sdf(seg_targets) if needs_sdf else None
-        seg_loss = seg_loss_fn(seg_preds, seg_targets, alpha, sdf)
+        if sr_seg_inv:  # on the LR map, against the target resized to it
+            main_pred = outputs["lr_seg"].to(acc)
+            main_tgt = resize(seg_targets, main_pred.shape[-2:], method=downscale_method)
+        else:
+            main_pred, main_tgt = seg_preds, seg_targets
+        sdf = boundary_sdf(main_tgt) if needs_sdf else None
+        seg_loss = seg_loss_fn(main_pred, main_tgt, alpha, sdf)
         if outputs.get("aux") is not None:
             aux = outputs["aux"].to(acc)
-            if side_maps:  # the target and its SDF broadcast to the side maps
+            if sr_seg_inv:
+                aux_tgt = resize(seg_targets, aux.shape[-2:], method=downscale_method)
+                if sdf is not None and aux_tgt.shape != main_tgt.shape:
+                    sdf = boundary_sdf(aux_tgt)
+                aux_loss = seg_loss_fn(aux, aux_tgt, alpha, sdf)
+            elif side_maps:  # the target and its SDF broadcast to the side maps
                 n = aux.shape[1]
                 aux_loss = seg_loss_fn(aux, seg_targets.expand_as(aux), alpha,
                                        None if sdf is None else sdf.expand_as(aux))
@@ -139,19 +176,16 @@ def build_loss_fn(cfg) -> Callable:
 
         # SR loss
         kernel_2d = None
-        if sr_loss_name == "KBPN":
-            sr_loss, kernel_2d = kbpn_loss(
-                outputs["sr"].to(acc), batch["hr"].to(acc), batch["lr"].to(acc),
-                outputs["kernel"].to(acc), batch["kernel"].to(acc), it,
-                ksize=ksize_out, scale_factor=sf, weights=kbpn_w,
-                only_kernel_loss_in_window=phase["in_kernel_window"] if only_kernel else None,
-                segment_preds=seg_preds, segment_targets=seg_targets,
-                co_amp=co_sr_amp, sfo_amp=sfo_sr_amp, weight_iter=w_iter,
-                co_bias=co_sr_bias, sfo_bias=sfo_sr_bias, weight_variant=w_variant,
-                gaus_size=w_gaus_size, gaus_sigma=w_gaus_sigma,
-                downscale_method=downscale_method)
+        if sr_none:
+            sr_loss = torch.zeros((seg_preds.shape[0],), dtype=acc, device=seg_preds.device)
+        elif sr_loss_name == "KBPN":
+            sr_loss, kernel_2d = kbpn(
+                outputs, batch, phase, acc, segment_preds=seg_preds,
+                segment_targets=seg_targets, co_amp=co_sr_amp, sfo_amp=sfo_sr_amp,
+                weight_iter=w_iter, co_bias=co_sr_bias, sfo_bias=sfo_sr_bias,
+                weight_variant=w_variant, gaus_size=w_gaus_size, gaus_sigma=w_gaus_sigma)
         else:
-            sr, tgt = outputs["sr"].to(acc), batch["hr"].to(acc)
+            sr, tgt = outputs["sr"].to(acc), batch["seg" if sr_seg_inv else "hr"].to(acc)
             sr_loss = (l1_per_sample if sr_loss_name == "L1" else l2_per_sample)(sr, tgt)
             # the reference's multiple_weight for the plain SR losses
             if (co_sr_amp != 0.0 or sfo_sr_amp != 0.0) and it >= w_iter:
@@ -176,14 +210,15 @@ def build_loss_fn(cfg) -> Callable:
             sr_loss = seg_loss.detach().mean() * sr_loss
 
         seg_mean, sr_mean = seg_loss.mean(), sr_loss.mean()
-        if phase["in_seg_pretrain"]:
+        if sr_none or phase["in_seg_pretrain"]:
             total = seg_mean
         elif phase["in_sr_pretrain"]:
             total = sr_mean
         elif joint:
-            total = (1.0 - phase["w_task"]) * sr_mean + phase["w_task"] * seg_mean
+            # 1 - w_task in float32, as the JAX package forms it
+            total = float(np.float32(1.0 - phase["w_task"])) * sr_mean + phase["w_task"] * seg_mean
         else:
-            total = seg_mean
+            total = sr_mean if sr_seg_inv else seg_mean
         out = {"total": total, "seg_loss": seg_mean, "sr_loss": sr_mean}
         if kernel_2d is not None:
             out["kernel_pred_2d"] = kernel_2d

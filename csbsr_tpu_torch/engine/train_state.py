@@ -1,15 +1,17 @@
-"""Gradient groups, phase masks, the lr schedule and Adam
+"""Gradient groups, phase masks, the lr schedule and the optimizers
 (`csbsr_tpu/engine/train_state.py`).
 
 The reference freezes parts of the model per phase by flipping
 `requires_grad`. The JAX package gives every parameter a group and
-multiplies, per phase, both its gradient and its Adam update by the group's
-0/1 multiplier. So a frozen group's parameters stay exactly still while its
-moments still decay and the step count still advances. `torch.optim.Adam`
-does neither (a zero grad moves the parameters by the stale momentum; a
-`None` grad skips the decay), so `MaskedAdam` writes the update out: optax's
-`adam` (b1 0.9, b2 0.999, eps 1e-8, bias-corrected, first moment stored in
-`TPU.OPT_MU_DTYPE`) with the mask applied per group.
+multiplies, per phase, both its gradient and its optimizer update by the
+group's 0/1 multiplier. So a frozen group's parameters stay exactly still
+while its Adam moments still decay and the step count still advances.
+`torch.optim.Adam` does neither (a zero grad moves the parameters by the
+stale momentum; a `None` grad skips the decay), so the updates are written
+out over the groups of `MaskedOptimizer`: `MaskedAdam` is optax's `adam`
+(b1 0.9, b2 0.999, eps 1e-8, bias-corrected, first moment stored in
+`TPU.OPT_MU_DTYPE`), `MaskedSGD` optax's `sgd` (no momentum: p -= lr * g),
+each with the mask applied per group.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 from .phase import PhaseConfig, compute_phase
 
 __all__ = ["SR_CORE", "KERNEL", "SEG", "BLURSKIP", "grad_group_ids", "group_multipliers",
-           "make_lr_schedule", "MaskedAdam", "TrainState", "create_train_state"]
+           "make_lr_schedule", "MaskedOptimizer", "MaskedAdam", "MaskedSGD", "TrainState",
+           "create_train_state"]
 
 # gradient groups
 SR_CORE, KERNEL, SEG, BLURSKIP = 0, 1, 2, 3
@@ -45,16 +48,20 @@ def grad_group_ids(named_params) -> Dict[str, int]:
     return groups
 
 
-def group_multipliers(phase: Dict, pc: PhaseConfig, blurskip_only: bool = False) -> List[float]:
+def group_multipliers(phase: Dict, pc: PhaseConfig, blurskip_only: bool = False,
+                      sr_seg_inv: bool = False) -> List[float]:
     """The phase's 0/1 multiplier of each group, [SR_CORE, KERNEL, SEG,
     BLURSKIP]. `blurskip_only` (the PSPNet_BlurSkip detectors' fine-tune):
-    everything frozen but the blur_skip ladder, at every iteration."""
+    everything frozen but the blur_skip ladder, at every iteration. Staged
+    training (JOINT_LEARNING False) trains the SR net first, then the seg
+    head alone; the inverse model (`sr_seg_inv`) trains both throughout, as
+    the reference, whose inverse staging is commented out, does."""
     if blurskip_only:
         return [0.0, 0.0, 0.0, 1.0]
     m_sr = 0.0 if phase["in_kernel_window"] else 1.0
     m_kernel = 0.0 if phase["use_gt_kernel"] else 1.0
     m_seg = 1.0
-    if not pc.joint_learning:  # staged: SR first, then the seg head alone
+    if not pc.joint_learning and not sr_seg_inv:
         after = phase["iteration"] >= pc.sr_pretrain[1]
         m_seg = 1.0 if after else 0.0
         if after:
@@ -84,91 +91,136 @@ def make_lr_schedule(cfg, pc: PhaseConfig) -> Callable[[int], float]:
     return schedule
 
 
-class MaskedAdam:
-    """optax.adam(schedule, mu_dtype) over named parameter groups, with the
+class MaskedOptimizer:
+    """An optax optimizer over named parameters in gradient groups, with the
     phase multiplier of each group applied to its gradient and its update.
 
     step(multipliers) reads `.grad` (None counts as zero, as in JAX, where
-    every parameter has a gradient). A group with multiplier 0 gets
-    mu *= b1, nu *= b2 and no parameter change, which is what the JAX
-    package's `0 * grad` / `0 * update` computes; a group with multiplier 1
-    the full update. All state changes in place."""
+    every parameter has a gradient) and evaluates the schedule at the step
+    count before the update. A group with multiplier 1 gets the full update
+    (`_update`); one with multiplier 0 no parameter change (`_frozen` keeps
+    what the JAX package's `0 * grad` / `0 * update` does to the state). All
+    state changes in place; the per-parameter state lives in `self.state`,
+    {key: [per group [per parameter tensor]]}."""
 
-    def __init__(self, named_params, group_ids: Dict[str, int], schedule: Callable[[int], float],
-                 mu_dtype=torch.float32):
+    state_keys = ()
+
+    def __init__(self, named_params, group_ids: Dict[str, int], schedule: Callable[[int], float]):
         self.schedule = schedule
         self.names: List[List[str]] = [[], [], [], []]
         self.params: List[List[torch.Tensor]] = [[], [], [], []]
         for name, p in named_params:
             self.names[group_ids[name]].append(name)
             self.params[group_ids[name]].append(p)
-        self.mu = [[torch.zeros_like(p, dtype=mu_dtype) for p in ps] for ps in self.params]
-        self.nu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
         self.count = 0
+        self.state = {k: [[self._init_state(k, p) for p in ps] for ps in self.params]
+                      for k in self.state_keys}
+
+    def _init_state(self, key, p):
+        return torch.zeros_like(p)
+
+    def _update(self, gid, params, grads, lr):
+        raise NotImplementedError
+
+    def _frozen(self, gid):
+        pass
 
     @torch.no_grad()
     def step(self, multipliers) -> None:
         lr = self.schedule(self.count)
         self.count += 1
+        for gid, params in enumerate(self.params):
+            if not params:
+                continue
+            if multipliers[gid] == 0.0:
+                self._frozen(gid)
+                continue
+            self._update(gid, params,
+                         [torch.zeros_like(p) if p.grad is None else p.grad for p in params], lr)
+
+    def state_dict(self) -> Dict:
+        names = [n for ns in self.names for n in ns]
+        out = {"count": self.count}
+        for k, groups in self.state.items():
+            out[k] = dict(zip(names, [t for ts in groups for t in ts]))
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        for k, groups in self.state.items():
+            for names, ts in zip(self.names, groups):
+                for n, t in zip(names, ts):
+                    t.copy_(state[k][n])
+
+
+class MaskedAdam(MaskedOptimizer):
+    """optax.adam(schedule, mu_dtype): a frozen group's moments decay
+    (mu *= b1, nu *= b2) and its parameters stay still."""
+
+    state_keys = ("mu", "nu")
+
+    def __init__(self, named_params, group_ids: Dict[str, int], schedule: Callable[[int], float],
+                 mu_dtype=torch.float32):
+        self.mu_dtype = mu_dtype
+        super().__init__(named_params, group_ids, schedule)
+        self.mu, self.nu = self.state["mu"], self.state["nu"]
+
+    def _init_state(self, key, p):
+        return torch.zeros_like(p, dtype=self.mu_dtype if key == "mu" else None)
+
+    def _frozen(self, gid):
+        torch._foreach_mul_(self.mu[gid], B1)
+        torch._foreach_mul_(self.nu[gid], B2)
+
+    def _update(self, gid, params, grads, lr):
         f32 = np.float32
         # optax bias correction, in float32: t / (1 - b**count)
         bc1 = float(f32(1.0) - f32(B1) ** f32(self.count))
         bc2 = float(f32(1.0) - f32(B2) ** f32(self.count))
-        for gid, params in enumerate(self.params):
-            if not params:
-                continue
-            mu, nu = self.mu[gid], self.nu[gid]
-            if multipliers[gid] == 0.0:
-                torch._foreach_mul_(mu, B1)
-                torch._foreach_mul_(nu, B2)
-                continue
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            # optax's order: (1 - b) * g^k + b * moment, unfused, with b * moment
-            # in the moment's stored dtype
-            torch._foreach_mul_(mu, B1)
-            mu32 = [m.float() for m in mu]  # the state itself when it is float32
-            torch._foreach_add_(mu32, torch._foreach_mul(grads, 1.0 - B1))
-            torch._foreach_mul_(nu, B2)
-            sq = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(sq, 1.0 - B2)
-            torch._foreach_add_(nu, sq)
-            # update = (mu / bc1) / (sqrt(nu / bc2) + eps), params += -lr * update
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, EPS)
-            upd = torch._foreach_div(mu32, bc1)
-            torch._foreach_div_(upd, den)
-            torch._foreach_add_(params, upd, alpha=-lr)
-            if mu32[0] is not mu[0]:
-                torch._foreach_copy_(mu, mu32)
+        mu, nu = self.mu[gid], self.nu[gid]
+        # optax's order: (1 - b) * g^k + b * moment, unfused, with b * moment
+        # in the moment's stored dtype
+        torch._foreach_mul_(mu, B1)
+        mu32 = [m.float() for m in mu]  # the state itself when it is float32
+        torch._foreach_add_(mu32, torch._foreach_mul(grads, 1.0 - B1))
+        torch._foreach_mul_(nu, B2)
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1.0 - B2)
+        torch._foreach_add_(nu, sq)
+        # update = (mu / bc1) / (sqrt(nu / bc2) + eps), params += -lr * update
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, EPS)
+        upd = torch._foreach_div(mu32, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        if mu32[0] is not mu[0]:
+            torch._foreach_copy_(mu, mu32)
 
-    def state_dict(self) -> Dict:
-        names = [n for ns in self.names for n in ns]
-        flat = lambda groups: [t for ts in groups for t in ts]
-        return {"count": self.count, "mu": dict(zip(names, flat(self.mu))),
-                "nu": dict(zip(names, flat(self.nu)))}
 
-    def load_state_dict(self, state: Dict) -> None:
-        self.count = int(state["count"])
-        for names, mu, nu in zip(self.names, self.mu, self.nu):
-            for n, m, v in zip(names, mu, nu):
-                m.copy_(state["mu"][n])
-                v.copy_(state["nu"][n])
+class MaskedSGD(MaskedOptimizer):
+    """optax.sgd(schedule): params += (-lr) * grad, no momentum, no state
+    but the count."""
+
+    def _update(self, gid, params, grads, lr):
+        torch._foreach_add_(params, torch._foreach_mul(grads, -lr))
 
 
 class TrainState:
     """The model, its optimizer and the step count (the last iteration run)."""
 
-    def __init__(self, model: torch.nn.Module, optimizer: MaskedAdam, step: int = 0):
+    def __init__(self, model: torch.nn.Module, optimizer: MaskedOptimizer, step: int = 0):
         self.model, self.optimizer, self.step = model, optimizer, step
 
 
 def create_train_state(cfg, model: torch.nn.Module, pc: PhaseConfig) -> TrainState:
-    if cfg.MODEL.OPTIMIZER != "Adam":
-        raise NotImplementedError(
-            f"MODEL.OPTIMIZER {cfg.MODEL.OPTIMIZER!r} is not ported yet (Adam only); "
-            "see ROADMAP.md, queue 1")
+    """The model with MODEL.OPTIMIZER (Adam or SGD) over its gradient groups."""
     named = list(model.named_parameters())
-    opt = MaskedAdam(named, grad_group_ids(named), make_lr_schedule(cfg, pc),
-                     mu_dtype=getattr(torch, str(cfg.TPU.OPT_MU_DTYPE)))
+    args = (named, grad_group_ids(named), make_lr_schedule(cfg, pc))
+    if cfg.MODEL.OPTIMIZER == "Adam":
+        opt = MaskedAdam(*args, mu_dtype=getattr(torch, str(cfg.TPU.OPT_MU_DTYPE)))
+    elif cfg.MODEL.OPTIMIZER == "SGD":
+        opt = MaskedSGD(*args)
+    else:
+        raise NotImplementedError(cfg.MODEL.OPTIMIZER)
     return TrainState(model, opt)

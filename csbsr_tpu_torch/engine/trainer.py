@@ -5,7 +5,7 @@
     bicubic 1/SF resize) runs on the device inside the step when the batch
     has no `lr`, from a generator seeded by (SEED, iteration).
   - The phases, alpha and beta are pure functions of the iteration
-    (engine/phase.py); the phase masks act in MaskedAdam
+    (engine/phase.py); the phase masks act in the optimizer
     (engine/train_state.py).
   - The step runs forward (train mode; dropout masks from a generator seeded
     by (SEED, iteration)), loss and backward with TF32 off, so the float32
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -40,6 +41,7 @@ from ..metrics.device_metrics import iou_thresholds, psnr, ssim
 from ..models.build import BLURSKIP_TYPES
 from ..ops.blur import degrade, identity_kernels, make_kernel_sampler
 from ..utils.device import full_fp32
+from ..utils.pretrained import WEIGHTS_DIR, load_imagenet_backbones, load_pretrained_sr
 from .losses_glue import build_loss_fn
 from .phase import compute_phase, phase_config_from_cfg
 from .train_state import TrainState, create_train_state, group_multipliers
@@ -65,7 +67,8 @@ def make_degrade_fn(cfg):
     method = cfg.SOLVER.DOWNSCALE_INTERPOLATION
     sampler = make_kernel_sampler(
         mode=cfg.BLUR.MODE, size=ksize, sigma_range=tuple(cfg.BLUR.SIGMA_RANGE),
-        sigma_range2=tuple(cfg.BLUR.SIGMA_RANGE2) or None, isotropic=bool(cfg.BLUR.ISOTROPIC))
+        sigma_range2=tuple(cfg.BLUR.SIGMA_RANGE2) or None,
+        ratio_range=tuple(cfg.BLUR.RATIO_RANGE), isotropic=bool(cfg.BLUR.ISOTROPIC))
 
     def fn(hr, generator):
         b = hr.shape[0]
@@ -83,6 +86,11 @@ def build_train_step(cfg, pc):
     degrade_fn = make_degrade_fn(cfg)
     seed = int(cfg.SEED)
     blurskip_only = cfg.MODEL.DETECTOR_TYPE in BLURSKIP_TYPES
+    sr_seg_inv = bool(cfg.MODEL.SR_SEG_INV)
+    if sr_seg_inv and not pc.joint_learning:
+        warnings.warn("MODEL.SR_SEG_INV with JOINT_LEARNING False: the reference's inverse "
+                      "staging is commented out, so both stages train for the whole run, "
+                      "as there", stacklevel=2)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
         it = state.step + 1
@@ -98,14 +106,15 @@ def build_train_step(cfg, pc):
             with record_function("train.forward"):
                 outputs = model(batch["lr"], batch["kernel"].reshape(batch["kernel"].shape[0], -1),
                                 phase["use_gt_kernel"],
-                                generator=step_generator(seed, it, DROPOUT_STREAM, dev))
+                                generator=step_generator(seed, it, DROPOUT_STREAM, dev),
+                                sr_targets=batch["hr"])
             with record_function("train.loss"):
                 losses = loss_fn(outputs, batch, phase)
             with record_function("train.backward"):
                 model.zero_grad(set_to_none=True)
                 losses["total"].backward()
         with record_function("train.optimizer"):
-            state.optimizer.step(group_multipliers(phase, pc, blurskip_only))
+            state.optimizer.step(group_multipliers(phase, pc, blurskip_only, sr_seg_inv))
         state.step = it
         return {"loss": losses["total"].detach(), "seg_loss": losses["seg_loss"].detach(),
                 "sr_loss": losses["sr_loss"].detach(), "alpha": phase["alpha"]}
@@ -115,27 +124,33 @@ def build_train_step(cfg, pc):
 
 def build_eval_step(cfg, model):
     """-> eval_step(batch) -> (metrics, outputs): forward in eval (running
-    BN statistics, no dropout) with clipped SR; per-sample PSNR/SSIM of the
-    SR, IoU at 0.5 and, for KBPN (the one SR net that predicts a kernel),
-    the PSNR of the clipped sum-1 kernel against the GT kernel. batch holds
-    "lr" and "kernel"."""
+    BN statistics, no dropout) with clipped SR; per-sample IoU at 0.5 (not
+    in SR-only pretraining, which has no seg head); PSNR/SSIM of the SR
+    unless the model has none to score (the inverse model's SR is a seg map;
+    SCALE_FACTOR 1 has no SR); with those, for KBPN (the one SR net that
+    predicts a kernel) the PSNR of the clipped sum-1 kernel against the GT
+    kernel. batch holds "hr", "seg", "lr" and "kernel"."""
     ksize = int(cfg.BLUR.KERNEL_SIZE_OUTPUT)
-    has_kernel = cfg.MODEL.SR == "KBPN"
+    sr_only = bool(cfg.DATASET.ONLY_IMAGES)
+    sr_metrics = not cfg.MODEL.SR_SEG_INV and cfg.MODEL.SCALE_FACTOR != 1
+    has_kernel = cfg.MODEL.SR == "KBPN" and sr_metrics
 
     @torch.inference_mode()
     def eval_step(batch):
         model.eval()
         with full_fp32():
             b = batch["kernel"].shape[0]
-            outputs = model(batch["lr"], batch["kernel"].reshape(b, -1), False, clip_sr=True)
-            sr = outputs["sr"].float().clamp(0.0, 1.0)
-            hr = batch["hr"].float()
-            m = {
-                "psnr": psnr(sr, hr),
-                "ssim": ssim(sr, hr),
-                "iou@0.5": iou_thresholds(outputs["seg"].float(), batch["seg"].float(),
-                                          torch.full((1,), 0.5, device=sr.device))[:, 0],
-            }
+            outputs = model(batch["lr"], batch["kernel"].reshape(b, -1), False, clip_sr=True,
+                            sr_targets=batch["hr"])
+            m = {}
+            if sr_metrics:
+                sr = outputs["sr"].float().clamp(0.0, 1.0)
+                hr = batch["hr"].float()
+                m.update(psnr=psnr(sr, hr), ssim=ssim(sr, hr))
+            if not sr_only:
+                m["iou@0.5"] = iou_thresholds(outputs["seg"].float(), batch["seg"].float(),
+                                              torch.full((1,), 0.5, device=batch["hr"].device)
+                                              )[:, 0]
             if has_kernel:
                 kvec = outputs["kernel"].float()
                 kvec = kvec / kvec.sum(dim=-1, keepdim=True)
@@ -192,15 +207,20 @@ def _lookahead(it):
 
 def do_train(cfg, model, train_loader, eval_batches=None, *, resume_iter: int = 0,
              log_step: int = 50, save_step: int = 2000, eval_step_every: int = 2000,
-             num_train_ds: Optional[int] = None, debug: bool = False, log_fn=print) -> TrainState:
+             num_train_ds: Optional[int] = None, debug: bool = False,
+             weights_dir: str = WEIGHTS_DIR, log_fn=print) -> TrainState:
     """The training loop on the model's device. `train_loader` yields host
     batches {"hr": (B, 3, H, W), "seg": (B, 1, H, W)} of float32 numpy;
     `eval_batches` are {"hr", "seg", "degrade_seed"} host batches, degraded
-    on the device with that seed at each eval."""
+    on the device with that seed at each eval. Before the first step the
+    ImageNet backbones and the pretrained SR weights found in `weights_dir`
+    are loaded (utils/pretrained.py), then a resumed run's checkpoint."""
     from ..utils.logging import MetricsLogger
 
     device = next(model.parameters()).device
     pc = phase_config_from_cfg(cfg, num_train_ds or len(train_loader))
+    load_imagenet_backbones(cfg, model, weights_dir, log_fn)
+    load_pretrained_sr(cfg, model, weights_dir, log_fn)
     state = create_train_state(cfg, model, pc)
     if resume_iter:
         restore_checkpoint(cfg.OUTPUT_DIR, state, resume_iter)
@@ -259,5 +279,7 @@ def _save_samples(pred_dir, iteration, batch, outputs, n: int = 4):
     n = min(n, batch["hr"].shape[0])
     for name, t in (("lr", batch["lr"]), ("sr", outputs["sr"].clamp(0, 1)), ("hr", batch["hr"]),
                     ("seg", outputs["seg"])):
+        if t is None:  # SR-only pretraining has no seg map
+            continue
         save_img(pred_dir, t[:n].float().cpu().numpy(),
                  [f"{name}{iteration}_{i}.png" for i in range(n)])

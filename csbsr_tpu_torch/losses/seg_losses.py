@@ -6,20 +6,31 @@ BoundaryCombo alpha is an explicit argument. The boundary term's SDF comes
 from ops/edt.sdf_normalized (the min-plus kernel on the card), without a
 gradient; a caller that scores several predictions against one target may
 pass the target's SDF in once (`sdf=`).
+
+The BoundaryCombo alpha is a float32 scalar in the JAX package, which
+forms its coefficients (1 - alpha, and alpha times the BCE/Dice share of
+the per-pixel map) in float32 even in a float64 run; `_f32` rounds them
+the same way, which a float32 run does anyway.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops.edt import sdf_normalized
 
 __all__ = ["weighted_bce", "binary_dice", "generalized_dice", "bce_dice", "boundary_sdf",
            "boundary_loss", "boundary_combo_loss", "boundary_gdice_loss",
-           "generalized_boundary_combo_loss", "bce"]
+           "generalized_boundary_combo_loss", "bce", "cross_entropy_loss_rcf"]
 
 _SMOOTH_BCE = 1e-8
+
+
+def _f32(x) -> float:
+    """x rounded to float32 (a coefficient the JAX package forms in float32)."""
+    return float(np.float32(x))
 
 
 def weighted_bce(predict, target, pos_weight: Sequence[float] = (1, 1), per_pixel=False):
@@ -100,17 +111,18 @@ def boundary_combo_loss(predict, target, alpha, pos_weight: Sequence[float] = (1
         bce_map = weighted_bce(predict, target, pos_weight, per_pixel=True)
         dice_map = binary_dice(predict, target, per_pixel=True)
         bd_map = boundary_loss(predict, target, per_pixel=True, sdf=sdf)
-        paired = alpha * (lw0 / (lw0 + lw1)) * bce_map + (1.0 - alpha) * bd_map
-        cross = alpha * (lw1 / (lw0 + lw1)) * dice_map
+        paired = (_f32(alpha * _f32(lw0 / (lw0 + lw1))) * bce_map
+                  + _f32(1.0 - alpha) * bd_map)
+        cross = _f32(alpha * _f32(lw1 / (lw0 + lw1))) * dice_map
         return paired, cross
     wd = bce_dice(predict, target, pos_weight, loss_weight)
-    return alpha * wd + (1.0 - alpha) * boundary_loss(predict, target, sdf=sdf)
+    return alpha * wd + _f32(1.0 - alpha) * boundary_loss(predict, target, sdf=sdf)
 
 
 def boundary_gdice_loss(predict, target, alpha, sdf: Optional[torch.Tensor] = None):
     """Boundary_GDiceLoss."""
     predict = predict.clamp_min(_SMOOTH_BCE)
-    return alpha * generalized_dice(predict, target) + (1.0 - alpha) * boundary_loss(
+    return alpha * generalized_dice(predict, target) + _f32(1.0 - alpha) * boundary_loss(
         predict, target, sdf=sdf)
 
 
@@ -120,10 +132,25 @@ def generalized_boundary_combo_loss(predict, target, alpha, pos_weight: Sequence
     """GeneralizedBoundaryComboLoss."""
     predict = predict.clamp_min(_SMOOTH_BCE)
     wd = bce_dice(predict, target, pos_weight, loss_weight, gdice=True)
-    return alpha * wd + (1.0 - alpha) * boundary_loss(predict, target, sdf=sdf)
+    return alpha * wd + _f32(1.0 - alpha) * boundary_loss(predict, target, sdf=sdf)
 
 
 def bce(predict, target):
     """torch nn.BCELoss() per sample (the 'BCE' option)."""
     p = predict.clamp(1e-7, 1.0 - 1e-7)
     return (-(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))).mean(dim=(1, 2, 3))
+
+
+def cross_entropy_loss_rcf(prediction, label):
+    """CrackFormer's class-balanced BCE, summed per sample: positives
+    (label > 0.5) weighted beta, negatives 1.1 * (1 - beta), with beta the
+    sample's share of negatives; prediction is already a probability,
+    clamped to [1e-7, 1 - 1e-7]."""
+    label_f = (label > 0.5).to(prediction.dtype)
+    num_pos = label_f.sum(dim=(1, 2, 3), keepdim=True)
+    num_neg = (1.0 - label_f).sum(dim=(1, 2, 3), keepdim=True)
+    beta = num_neg / (num_pos + num_neg).clamp_min(1.0)
+    weight = torch.where(label_f > 0.5, beta, 1.1 * (1.0 - beta))
+    p = prediction.clamp(1e-7, 1.0 - 1e-7)
+    loss = -(label_f * torch.log(p) + (1.0 - label_f) * torch.log(1.0 - p)) * weight
+    return loss.sum(dim=(1, 2, 3))

@@ -1,18 +1,28 @@
 """Joint SR + segmentation model (`csbsr_tpu/models/build.py`).
 
-forward(lr, kernel_gt_vec=None, use_gt_kernel=False, clip_sr=False, generator=None) ->
+forward(lr, kernel_gt_vec=None, use_gt_kernel=False, clip_sr=False, generator=None,
+        sr_targets=None) ->
     {"sr": (B, 3, sH, sW), "kernel": (B, k_out^2), "seg": (B, 1, sH, sW), "aux": ...}
 
 `kernel_gt_vec` / `use_gt_kernel` are the GT-kernel window's inputs (KBPN);
-`generator` draws the heads' train-mode dropout masks.
+`generator` draws the heads' train-mode dropout masks; `sr_targets` is the
+HR image, which SCALE_FACTOR 1 takes as its SR output.
 
 SR: KBPN, or DBPN, whose kernel output is zeros in the compute dtype (the
-JAX package's, so kernel-PSNR of a DBPN model is that of 0/0, NaN).
+JAX package's, so kernel-PSNR of a DBPN model is that of 0/0, NaN). Without
+an SR network (SCALE_FACTOR 1: the SR output is `sr_targets`; SR "bicubic":
+a bicubic resize of the LR) the kernel is zeros too. SR "none" needs
+SCALE_FACTOR 1; the JAX package fails on it otherwise, and the port raises
+a ValueError.
 Detectors: PSPNet, u-net16, PSPNet_BlurSkip / _origin / Reduct (the kernel
 vector conditions the skip ladder; Reduct first resizes the k_out^2 kernel
 to KERNEL_SIZE^2, bicubic with align_corners), HRNet_OCR and CrackFormer
 (aux = its five side maps). `aux` is None for a head without one (u-net16).
-DSRL, SrcNetSR / SegNet, SR_SEG_INV and ONLY_IMAGES raise and wait in
+`sr_only` (SR-only pretraining, DATASET.ONLY_IMAGES) builds no seg head and
+returns seg = aux = None. `sr_seg_inv` (MODEL.SR_SEG_INV) segments the LR
+image (un-normalised; a BlurSkip ladder conditioned on the GT kernel
+vector), then super-resolves that 1-channel map, which is both "sr" and
+"seg"; "lr_seg" is the LR map. DSRL and SrcNetSR / SegNet raise and wait in
 ROADMAP.md, queue 1.
 """
 from __future__ import annotations
@@ -33,6 +43,7 @@ SEG_RETURNS_AUX = ("PSPNet", "PSPNet_BlurSkip", "PSPNet_BlurSkip_origin",
                    "PSPNet_BlurSkipReduct", "HRNet_OCR", "CrackFormer")
 BLURSKIP_TYPES = ("PSPNet_BlurSkip", "PSPNet_BlurSkip_origin", "PSPNet_BlurSkipReduct")
 SR_TYPES = ("KBPN", "DBPN")
+SR_NONE_TYPES = ("bicubic", "none")
 DETECTOR_TYPES = ("PSPNet", "u-net16", "HRNet_OCR", "CrackFormer") + BLURSKIP_TYPES
 
 
@@ -58,30 +69,40 @@ class CSBSRModel(nn.Module):
                  residual_learning=True, pixel_shuffle=False, sum_lr_error_pos="HR",
                  zero_pad_kernel=False, up_sample_method="deconv", norm_sr_output="all",
                  input_mean=(0.4741, 0.4937, 0.5048), input_std=(0.1621, 0.1532, 0.1523),
-                 pspnet_backend="resnet34", dtype=torch.float32, generator=None):
+                 pspnet_backend="resnet34", sr_seg_inv=False, sr_only=False,
+                 dtype=torch.float32, generator=None):
         super().__init__()
-        if sr not in SR_TYPES or detector not in DETECTOR_TYPES or scale_factor == 1:
+        has_sr = scale_factor != 1 and sr != "bicubic"
+        if sr == "none" and has_sr:
+            raise ValueError(f'MODEL.SR "none" needs MODEL.SCALE_FACTOR 1, not {scale_factor}')
+        if (has_sr and sr not in SR_TYPES) or sr == "DSRL" or (
+                not sr_only and detector not in DETECTOR_TYPES):
             raise NotImplementedError(
                 f"SR={sr!r} with DETECTOR_TYPE={detector!r} (SCALE_FACTOR {scale_factor}) is "
-                f"not ported yet (SR {SR_TYPES}, detectors {DETECTOR_TYPES}); see ROADMAP.md, "
-                "queue 1 (rest of the zoo)"
+                f"not ported yet (SR {SR_TYPES + SR_NONE_TYPES}, detectors {DETECTOR_TYPES}); "
+                "see ROADMAP.md, queue 1 (rest of the zoo)"
             )
-        self.sr, self.detector = sr, detector
+        self.sr, self.detector, self.scale_factor = sr, detector, scale_factor
+        self.has_sr, self.sr_seg_inv, self.sr_only = has_sr, sr_seg_inv, sr_only
         self.estimate_ksize, self.ksize_output = estimate_ksize, ksize_output
         self.norm_sr_output = norm_sr_output
         self.input_mean, self.input_std = tuple(input_mean), tuple(input_std)
         self.dtype = dtype
         g = generator
-        if sr == "KBPN":
+        channels = 1 if sr_seg_inv else 3
+        if has_sr and sr == "KBPN":
             self.sr_model = KBPN(
                 scale_factor=scale_factor, num_stages=num_stages, estimate_ksize=estimate_ksize,
                 ksize_output=ksize_output, kernel_sft=kernel_sft,
                 residual_learning=residual_learning, pixel_shuffle=pixel_shuffle,
                 sum_lr_error_pos=sum_lr_error_pos, zero_pad_kernel=zero_pad_kernel,
-                generator=g,
+                num_channels=channels, generator=g,
             )
-        else:
-            self.sr_model = DBPN(scale_factor=scale_factor, num_stages=num_stages, generator=g)
+        elif has_sr:
+            self.sr_model = DBPN(scale_factor=scale_factor, num_channels=channels,
+                                 num_stages=num_stages, generator=g)
+        if sr_only:
+            return
         if detector == "PSPNet":
             seg = PSPNet(num_classes, pspnet_backend, generator=g)
         elif detector == "u-net16":
@@ -107,25 +128,46 @@ class CSBSRModel(nn.Module):
         return resize(k2d, (k_in, k_in), method="bicubic",
                       align_corners=True).reshape(-1, k_in * k_in)
 
+    def _forward_sr(self, x, kernel_gt_vec, use_gt_kernel, sr_targets):
+        """-> (sr, kernel_vec)."""
+        if self.sr == "KBPN" and self.has_sr:
+            return self.sr_model(x, kernel_gt_vec, use_gt_kernel, compute_dtype=self.dtype)
+        zeros = torch.zeros((x.shape[0], self.ksize_output ** 2), dtype=self.dtype,
+                            device=x.device)
+        if self.has_sr:
+            return self.sr_model(x, compute_dtype=self.dtype), zeros
+        if self.scale_factor == 1:
+            if sr_targets is None:
+                raise ValueError("SCALE_FACTOR 1 takes the HR image as its SR output: "
+                                 "pass sr_targets")
+            return sr_targets, zeros
+        out_hw = (x.shape[2] * self.scale_factor, x.shape[3] * self.scale_factor)
+        return resize(x, out_hw, method="bicubic"), zeros
+
+    def _forward_ss(self, x, kernel_vec, generator):
+        """The seg head on x (cast to the compute dtype) -> (seg, aux)."""
+        x = x.to(self.dtype)
+        if self.detector in BLURSKIP_TYPES:
+            return self.segmentation_model(x, self._condition(kernel_vec), generator)
+        if self.detector == "u-net16":
+            return self.segmentation_model(x), None
+        return self.segmentation_model(x, generator)
+
     def forward(self, x, kernel_gt_vec=None, use_gt_kernel=False, clip_sr: bool = False,
-                generator=None):
-        if self.sr == "KBPN":
-            sr, kernel_vec = self.sr_model(x, kernel_gt_vec, use_gt_kernel,
-                                           compute_dtype=self.dtype)
-        else:
-            sr = self.sr_model(x, compute_dtype=self.dtype)
-            kernel_vec = torch.zeros((x.shape[0], self.ksize_output ** 2), dtype=self.dtype,
-                                     device=x.device)
+                generator=None, sr_targets=None):
+        if self.sr_seg_inv:
+            lr_seg, lr_aux = self._forward_ss(x, kernel_gt_vec, generator)
+            seg, kernel_vec = self._forward_sr(lr_seg, kernel_gt_vec, use_gt_kernel, sr_targets)
+            if clip_sr:
+                seg = seg.clamp(0.0, 1.0)
+            return {"sr": seg, "kernel": kernel_vec, "seg": seg, "aux": lr_aux, "lr_seg": lr_seg}
+        sr, kernel_vec = self._forward_sr(x, kernel_gt_vec, use_gt_kernel, sr_targets)
         if clip_sr:
             sr = sr.clamp(0.0, 1.0)
+        if self.sr_only:
+            return {"sr": sr, "kernel": kernel_vec, "seg": None, "aux": None}
         sr_norm = _norm_sr(sr, self.norm_sr_output, self.input_mean, self.input_std)
-        seg_in = sr_norm.to(self.dtype)
-        if self.detector in BLURSKIP_TYPES:
-            seg, aux = self.segmentation_model(seg_in, self._condition(kernel_vec), generator)
-        elif self.detector == "u-net16":
-            seg, aux = self.segmentation_model(seg_in), None
-        else:
-            seg, aux = self.segmentation_model(seg_in, generator)
+        seg, aux = self._forward_ss(sr_norm, kernel_vec, generator)
         return {"sr": sr, "kernel": kernel_vec, "seg": seg, "aux": aux}
 
 
@@ -135,9 +177,6 @@ def model_from_cfg(cfg, device=None, dtype=None, seed=None) -> CSBSRModel:
     `device` (CUDA unless the caller asks otherwise). The compute dtype is
     TPU.COMPUTE_DTYPE unless `dtype` is given; params are float32."""
     dev = resolve_device(device)
-    if cfg.MODEL.SR_SEG_INV or cfg.DATASET.ONLY_IMAGES:
-        raise NotImplementedError(
-            "SR_SEG_INV / ONLY_IMAGES models are not ported yet; see ROADMAP.md, queue 1")
     gen = torch.Generator().manual_seed(int(cfg.SEED if seed is None else seed))
     model = CSBSRModel(
         sr=cfg.MODEL.SR, detector=cfg.MODEL.DETECTOR_TYPE,
@@ -151,7 +190,8 @@ def model_from_cfg(cfg, device=None, dtype=None, seed=None) -> CSBSRModel:
         up_sample_method=cfg.MODEL.UP_SAMPLE_METHOD,
         norm_sr_output=cfg.SOLVER.NORM_SR_OUTPUT,
         input_mean=cfg.INPUT.MEAN, input_std=cfg.INPUT.STD,
-        pspnet_backend=cfg.TPU.PSPNET_BACKEND,
+        pspnet_backend=cfg.TPU.PSPNET_BACKEND, sr_seg_inv=bool(cfg.MODEL.SR_SEG_INV),
+        sr_only=bool(cfg.DATASET.ONLY_IMAGES),
         dtype=compute_dtype(cfg) if dtype is None else dtype,
         generator=gen,
     )

@@ -5,7 +5,11 @@ kernel-condition map, which is what `CSBSR_MERGED_SR=0` / `CSBSR_DENSE_IKC=1`
 select in the JAX package (its default merged / banded forms are XLA
 restructurings with identical math and param layout). Only the flagship
 variant is ported: SUM_LR_ERROR_POS=HR, no pixel shuffle, kernel SFT on,
-bicubic kernel upsampling (ZERO_PAD_KERNEL=False), 3 channels.
+bicubic kernel upsampling (ZERO_PAD_KERNEL=False). `num_channels` is the
+image's channel count in and out (1 for the inverse model, which
+super-resolves a segmentation map); the kernel blocks' pseudo-SR stays
+3-channel and its LR error broadcasts over the input's channels, as in the
+JAX package.
 
 In int8 serving the convs that the JAX package's merged / banded forms
 compute with plain lax convs stay in the compute dtype (`keep_float`): the
@@ -209,7 +213,7 @@ class KBPN(nn.Module):
     def __init__(self, scale_factor=4, num_stages=4, md_ch=128, estimate_ksize=21,
                  ksize_output=21, kernel_sft=True, residual_learning=True,
                  pixel_shuffle=False, sum_lr_error_pos="HR", zero_pad_kernel=False,
-                 generator=None):
+                 num_channels=3, generator=None):
         super().__init__()
         if pixel_shuffle or sum_lr_error_pos != "HR" or zero_pad_kernel or not kernel_sft:
             raise NotImplementedError(
@@ -221,7 +225,7 @@ class KBPN(nn.Module):
         k, s, p = _CONV_SETTING[scale_factor]
         self.scale_factor, self.num_stages = scale_factor, num_stages
         self.residual_learning = residual_learning
-        chans = [3, 64, 64, 128, 128]
+        chans = [num_channels, 64, 64, 128, 128]
         layers = []
         for i in range(4):
             layers += [conv2d(chans[i], chans[i + 1], 3, padding=1, generator=g), nn.ReLU()]
@@ -232,8 +236,8 @@ class KBPN(nn.Module):
                       k, s, p, estimate_ksize, ksize_output, scale_factor, generator=g)
             for st in range(1, num_stages + 1)
         ])
-        self.output_conv = keep_float(ConvBlock(num_stages * md_ch, 3, 3, 1, 1, activation=None,
-                                                generator=g))
+        self.output_conv = keep_float(ConvBlock(num_stages * md_ch, num_channels, 3, 1, 1,
+                                                activation=None, generator=g))
 
     def forward(self, x: torch.Tensor, kernel_gt_vec=None, use_gt_kernel=False,
                 compute_dtype: torch.dtype = torch.float32):

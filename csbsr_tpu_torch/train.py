@@ -2,14 +2,22 @@
 
 Mirrors the root `train.py` (the JAX package's): the config is the defaults
 merged with --config_file and trailing `KEY VALUE` overrides, a copy goes to
-OUTPUT_DIR/config.yaml, the dataset is CrackDataSet under
-DATASET.TRAIN_IMAGE_DIR or, with --synthetic or without that directory, the
-synthetic set of max(256, 21 * BATCH_SIZE) crops; a seeded 95/5 split gives
-the train stream and the eval batches. Runs on CUDA unless given
---device cpu; without CUDA the default raises.
+OUTPUT_DIR/config.yaml, and the dataset under DATASET.TRAIN_IMAGE_DIR is
+chosen as there: SRPretrainDataSet with DATASET.ONLY_IMAGES, RetinalDataSet
+for a "RetinalSeg" directory, MassRoadDataset for one named "road",
+CrackDataSet otherwise; with --synthetic or without that directory, the
+synthetic set of max(256, 21 * BATCH_SIZE) crops. A seeded 95/5 split (12
+images for the retinal set) gives the train stream and the eval batches.
+Runs on CUDA unless given --device cpu; without CUDA the default raises.
 
   python -m csbsr_tpu_torch.train --config_file configs/config_csbsr_pspnet.yaml \\
       --synthetic [--device cuda] [KEY VALUE ...]
+
+Pretrained weights are read from weights/pretrain/ under the working
+directory when present (utils/pretrained.py): SR-only pretraining
+(DATASET.ONLY_IMAGES True) of KBPN x4 with 4 stages saves
+checkpoints/<iter>.pth; copied to weights/pretrain/KBPN_pretrain_x4_stage4.pth
+it starts the joint training of the flagship recipe.
 """
 from __future__ import annotations
 
@@ -44,14 +52,18 @@ def parse_args(argv=None):
 
 
 def build_datasets(cfg, synthetic: bool, log_fn=print):
-    from .data import CrackDataSet, SyntheticCrackDataSet, TrainTransforms
+    from .data import (CrackDataSet, MassRoadDataset, RetinalDataSet, SRPretrainDataSet,
+                       SyntheticCrackDataSet, TrainTransforms)
 
-    if not synthetic and os.path.isdir(cfg.DATASET.TRAIN_IMAGE_DIR):
-        if any(t in cfg.DATASET.TRAIN_IMAGE_DIR.lower() for t in ("retinalseg", "road")):
-            raise NotImplementedError("the retinal and road datasets are not ported yet; "
-                                      "see ROADMAP.md, queue 1")
-        ds = CrackDataSet(cfg, cfg.DATASET.TRAIN_IMAGE_DIR, cfg.DATASET.TRAIN_MASK_DIR,
-                          TrainTransforms(cfg))
+    image_dir = cfg.DATASET.TRAIN_IMAGE_DIR
+    if not synthetic and os.path.isdir(image_dir):
+        transforms = TrainTransforms(cfg)
+        if cfg.DATASET.ONLY_IMAGES:
+            ds = SRPretrainDataSet(cfg, image_dir, transforms)
+        else:
+            cls = (RetinalDataSet if "RetinalSeg" in image_dir else
+                   MassRoadDataset if "road" in image_dir.lower() else CrackDataSet)
+            ds = cls(cfg, image_dir, cfg.DATASET.TRAIN_MASK_DIR, transforms)
         if len(ds) > 0:
             return ds
         log_fn(f"No images found under {cfg.DATASET.TRAIN_IMAGE_DIR}; using synthetic data")
@@ -64,8 +76,10 @@ def build_datasets(cfg, synthetic: bool, log_fn=print):
 
 def split_and_eval_batches(cfg, dataset, max_eval_batches: int = 0):
     """The seeded random 95/5 split: (train indices, eval batches of host
-    numpy {"hr", "seg", "degrade_seed"}, NCHW)."""
+    numpy {"hr", "seg", "degrade_seed"}, NCHW); the retinal set trains on 12."""
     n_train = int(len(dataset) * cfg.SOLVER.TRAIN_DATASET_RATIO)
+    if "RetinalSeg" in cfg.DATASET.TRAIN_IMAGE_DIR:
+        n_train = min(12, len(dataset))
     perm = np.random.RandomState(cfg.SEED).permutation(len(dataset))
     eval_idx = perm[n_train:]
     b = cfg.SOLVER.BATCH_SIZE

@@ -98,9 +98,24 @@ def test_train_transforms_draw_like_jax_per_sample():
 
 
 def test_unported_augmentations_raise():
-    cfg = get_cfg_defaults()  # the default chain ends with RandomResizedCrop
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainTransforms(cfg)
+    """The default chain, which ends with RandomResizedCrop, now builds and
+    draws as the JAX package's does; a name outside the registry raises in
+    both packages."""
+    jcfg, cfg = _cfgs(image_size=24)
+    for c in (jcfg, cfg):
+        c.DATASET.DATA_AUGMENTATION = get_cfg_defaults().DATASET.DATA_AUGMENTATION
+    rng = np.random.RandomState(2)
+    img = (rng.rand(30, 28, 3) * 255).astype(np.uint8)
+    mask = ((rng.rand(30, 28, 1) > 0.5) * 255).astype(np.uint8)
+    a = TrainTransforms(cfg)(img, mask, np.random.RandomState(5))
+    b = JaxTrainTransforms(jcfg)(img, mask, np.random.RandomState(5))
+    assert a[0].shape == (24, 24, 3) and a[1].shape == (24, 24, 1)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-3 / 255)
+    for c, build in ((cfg, TrainTransforms), (jcfg, JaxTrainTransforms)):
+        c.DATASET.DATA_AUGMENTATION = [["NoSuchAugmentation", None]]
+        with pytest.raises(KeyError):
+            build(c)
 
 
 def test_split_and_eval_batches_follow_the_seeded_permutation():

@@ -1,7 +1,8 @@
 """Port: package isolation and device resolution.
 
 csbsr_tpu_torch and chip_smoke.py import no JAX, Flax, Orbax or anything of
-the JAX package; the package imports with `jax` blocked; entry points refuse
+the JAX package, nor OpenCV or torchvision (the card's machine has neither);
+the package imports with `jax` blocked; entry points refuse
 to fall back to the CPU when CUDA is asked for (or implied) and absent.
 """
 import ast
@@ -15,7 +16,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "csbsr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "csbsr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "csbsr_tpu",
+             "cv2", "torchvision")  # the last two: absent from the card's machine
 
 
 def _imports(path):

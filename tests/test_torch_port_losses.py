@@ -240,8 +240,17 @@ def test_sampled_kernels_stay_in_range_and_sum_to_one():
 
 @pytest.mark.parametrize("mode", ["disk", "motion", "all_rand", "gaus-motion"])
 def test_unported_blur_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblur.make_kernel_sampler(mode)
+    """The modes that waited in ROADMAP.md now sample sum-1 kernels (their
+    parity with the JAX package: tests/test_torch_port_surface.py); a mode
+    that is not one raises, as in the JAX package."""
+    kernels = tblur.make_kernel_sampler(mode, 21)(torch.Generator().manual_seed(1), 4)
+    assert kernels.shape == (4, 21, 21) and bool((kernels >= 0).all())
+    np.testing.assert_allclose(kernels.sum(dim=(1, 2)).numpy(), 1.0, rtol=0, atol=1e-5)
+    unknown = mode.replace("-", "_") + "x"
+    with pytest.raises(ValueError, match="unknown blur mode"):
+        tblur.make_kernel_sampler(unknown)
+    with pytest.raises(ValueError, match="unknown blur mode"):
+        jblur.make_kernel_sampler(unknown)
 
 
 @pytest.mark.parametrize("k,hw", [(21, (48, 40)), (7, (32, 32))])

@@ -54,6 +54,8 @@ RECIPES = {
     "crackformer": ("config_csbsr_crackformer", None),
     "hrnet": ("config_csbsr_hrnet", None),
 }
+# recipes held in a train step only (tests/test_torch_port_zoo_train.py)
+TRAIN_ONLY_RECIPES = {"wf": ("config_csbsr_pspnet_wf", None)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,7 +70,7 @@ def _one_torch_thread():
 
 def zoo_cfgs(name, image_size=32, stages=2, extra=()):
     """(JAX cfg, port cfg) of a recipe cut to size, float32 compute."""
-    recipe, detector = RECIPES[name]
+    recipe, detector = {**RECIPES, **TRAIN_ONLY_RECIPES}[name]
     out = []
     for cfg in (jax_cfg_defaults(), get_cfg_defaults()):
         cfg.merge_from_file(f"configs/{recipe}.yaml")

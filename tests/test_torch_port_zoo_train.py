@@ -4,7 +4,10 @@ side-map loss.
 
 Each recipe is cut to image 32, 2 KBPN stages, batch 2 (HRNet at width 8),
 with the flagship train tests' windows (iteration 6: the joint phase, SR
-and seg losses live, alpha 0.4) and dropout off on both sides. The port runs
+and seg losses live, alpha 0.4) and dropout off on both sides. The wf recipe
+(the flagship with the failure-oriented SR weight, m^f = 1) steps at
+WF_ITERATION, past its ORIENTED_WEIGHT_ITER of 30001, where the weight is
+live. The port runs
 the step in float64 and the JAX package in float64 (scoped `enable_x64`,
 the boundary loss's SDF rounded to float32 as outside x64), as
 `test_float64_train_step_equals_jax_float64` does for the flagship: float32
@@ -41,7 +44,8 @@ from tests.test_torch_port_models import nchw
 from tests.test_torch_port_train import ITERATIONS, NUM_TRAIN, WINDOWS, _batch, _dropout_off
 from tests.test_torch_port_zoo import narrow_hrnet, zoo_cfgs, zoo_models  # noqa: F401
 
-TRAIN_RECIPES = ("dbpn", "unet16", "blurskip", "crackformer", "hrnet")
+TRAIN_RECIPES = ("dbpn", "unet16", "blurskip", "crackformer", "hrnet", "wf")
+WF_ITERATION = 30002  # the SR loss weights its maps from iteration > ORIENTED_WEIGHT_ITER
 # (loss, gradient and statistics) tolerances where a recipe needs more than
 # (1e-12, 1e-9): HRNet at image 32 runs train-mode BatchNorms over B = 2
 # values (its deepest branch is 1 x 1; ObjectAttention's proxy map is
@@ -72,14 +76,15 @@ def _to_port64(params, batch_stats=None):
     return {k: hi[k].double() + lo[k].double() for k in hi if hi[k].is_floating_point()}
 
 
-@pytest.mark.parametrize("name", TRAIN_RECIPES)
-def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet):  # noqa: F811
+def float64_steps(jcfg, cfg, variables, model, it, batch):
+    """One train-mode forward + loss + backward at iteration `it` of both
+    packages on the same weights and NHWC batch, in float64, dropout off:
+    -> (JAX {"losses", "grads", "stats", "outputs"}, port {"losses",
+    "outputs"}); the port's gradients stay on `model`."""
     import flax.linen as fnn
 
     from csbsr_tpu.models import model_from_cfg as jax_model_from_cfg
 
-    jcfg, cfg, _, variables, model = zoo_models(name, seed=9, extra=WINDOWS)
-    it, batch = ITERATIONS[-1], _batch()
     b = batch["hr"].shape[0]
     f64 = lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
     phase_j = jax_compute_phase(it, jax_phase_config(jcfg, NUM_TRAIN))
@@ -97,28 +102,40 @@ def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet):  # no
                 phase_j["use_gt_kernel"], sr_targets=jb["hr"], train=True,
                 mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(0)})
             losses = loss_j(out, jb, phase_j)
-            return losses["total"], (losses, mutated.get("batch_stats", {}))
+            return losses["total"], (losses, mutated.get("batch_stats", {}), out)
 
-        grads_j, (losses_j, stats_j) = jax.device_get(jax.jit(jax.grad(_loss, has_aux=True))(
-            f64(variables["params"]), f64(variables.get("batch_stats", {})), f64(batch)))
+        grads_j, (losses_j, stats_j, out_j) = jax.device_get(jax.jit(jax.grad(
+            _loss, has_aux=True))(f64(variables["params"]), f64(variables.get("batch_stats", {})),
+                                  f64(batch)))
 
     model.double()
     model.dtype = torch.float64
     _dropout_off(model.train())
     tb = {k: (nchw(v) if v.ndim == 4 else torch.from_numpy(v)).double() for k, v in batch.items()}
     phase = compute_phase(it, phase_config_from_cfg(cfg, NUM_TRAIN))
-    out = model(tb["lr"], tb["kernel"].reshape(b, -1), phase["use_gt_kernel"])
+    out = model(tb["lr"], tb["kernel"].reshape(b, -1), phase["use_gt_kernel"],
+                sr_targets=tb["hr"])
     losses = build_loss_fn(cfg)(out, tb, phase)
     losses["total"].backward()
-    loss_tol, grad_tol = TOLS.get(name, (1e-12, 1e-9))
+    assert phase["alpha"] == pytest.approx(float(phase_j["alpha"]))
+    return ({"losses": losses_j, "grads": grads_j, "stats": stats_j, "outputs": out_j},
+            {"losses": losses, "outputs": out, "phase": phase})
+
+
+def assert_float64_steps_equal(jax_side, port_side, model, variables, loss_tol=1e-12,
+                               grad_tol=1e-9):
+    """Losses to loss_tol relative; every gradient tensor elementwise to
+    grad_tol of its largest |value| (floored at 1e-3 of the model's largest
+    |grad|), each gradient group's L2 norm to grad_tol; BatchNorm running
+    statistics to grad_tol of each tensor's largest |value|. Returns the
+    port's running statistics."""
+    losses, losses_j = port_side["losses"], jax_side["losses"]
     for k in ("total", "seg_loss", "sr_loss"):
         np.testing.assert_allclose(float(losses[k].detach()), float(losses_j[k]), rtol=loss_tol,
                                    err_msg=k)
-    assert float(losses["seg_loss"].detach()) > 0.0 and phase["alpha"] == pytest.approx(0.4)
-
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in model.named_parameters()}
-    ref = _to_port64(grads_j)
+    ref = _to_port64(jax_side["grads"])
     assert set(grads) == set(ref)
     floor = 1e-3 * max(float(g.abs().max()) for g in ref.values())
     worst = max((float((g - ref[n]).abs().max()) / max(float(ref[n].abs().max()), floor), n)
@@ -131,12 +148,27 @@ def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet):  # no
         assert norm(ref) > 0.0 and norm(grads) == pytest.approx(norm(ref), rel=grad_tol), gid
 
     stats = {k: v for k, v in model.state_dict().items() if ".running_" in k}
-    assert (len(stats) > 0) == (name not in ("unet16", "crackformer"))
     if stats:
-        ref_stats = _to_port64(variables["params"], stats_j)
+        ref_stats = _to_port64(variables["params"], jax_side["stats"])
         for k, v in stats.items():
             err = float((v - ref_stats[k]).abs().max()) / float(ref_stats[k].abs().max())
             assert err <= grad_tol, (k, err)
+    return stats
+
+
+@pytest.mark.parametrize("name", TRAIN_RECIPES)
+def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet):  # noqa: F811
+    jcfg, cfg, _, variables, model = zoo_models(name, seed=9, extra=WINDOWS)
+    it = WF_ITERATION if name == "wf" else ITERATIONS[-1]
+    assert name != "wf" or it > cfg.SOLVER.ORIENTED_WEIGHT_ITER > 0 and \
+        cfg.SOLVER.SEG_FAIL_ORIENTED_WEIGHT4SR_AMP == 1.0
+    jax_side, port_side = float64_steps(jcfg, cfg, variables, model, it, _batch())
+    loss_tol, grad_tol = TOLS.get(name, (1e-12, 1e-9))
+    stats = assert_float64_steps_equal(jax_side, port_side, model, variables, loss_tol, grad_tol)
+    alpha = port_side["phase"]["alpha"] if name == "wf" else 0.4
+    assert float(port_side["losses"]["seg_loss"].detach()) > 0.0
+    assert port_side["phase"]["alpha"] == pytest.approx(alpha)
+    assert (len(stats) > 0) == (name not in ("unet16", "crackformer"))
 
 
 def test_blurskip_fine_tune_moves_only_the_ladder():
