@@ -120,6 +120,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 line per variant (images/s after the first step, peak
                 memory, launches, first and last loss), then the phase's
                 seconds.
+ 10. baselines  (run after surface, before serve) the paper's other joint
+                baselines, each the flagship recipe with overrides: DSRL with
+                ResNet-101 (bilinear and deconv upsampling), DRN-D-54,
+                MobileNetV2 and Xception, KBPN + SegNet, SrcNetSR + PSPNet;
+                full width, seed's random weights, bf16: 2 eval images of
+                448x448 through score_for_ss with the HD bank, the model in
+                float64 on the card against the CPU on a 16x16 LR patch, 3
+                joint-phase steps of do_train at batch 6 of 224x224 crops
+                (2 min-plus launches per image and per step, counts reset
+                just before and read just after each path); DSRL-ResNet's
+                float64 train step on the card against the CPU at LR 32
+                (check_surface_step_against_cpu); for DSRL-ResNet, SegNet
+                and SrcNetSR the bf16-vs-int8 agreement on one image and
+                that image in int8 (its int8 conv configurations join the
+                serve phase's exactness check). One JSON line per row
+                (images/s, peak memory, launches), then the phase's seconds.
 
 Then the `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 It exits without a result when CUDA is absent or the package is missing.
@@ -802,12 +818,14 @@ def _write_pngs(root, n, hw, masks: bool):
     return [os.path.join(root, "images"), os.path.join(root, "masks")]
 
 
-def check_surface_step_against_cpu(cfg, model, it):
+def check_surface_step_against_cpu(cfg, model, it, lr_side=SURFACE_CPU_LR,
+                                   dtypes=(torch.float64, torch.float32)):
     """One train-mode step (forward, loss, backward; TF32 off, dropout off;
     no optimizer) of `model`'s current weights on the card and on the host
-    CPU, on a batch of CPU_CHECK_BATCH random images at LR SURFACE_CPU_LR
+    CPU, on a batch of CPU_CHECK_BATCH random images at LR `lr_side`
     (degraded on the card; the SR-only variant's masks are zero), at
-    iteration `it`, with the limits of check_train_step_against_cpu:
+    iteration `it`, in each of `dtypes`, with the limits of
+    check_train_step_against_cpu:
 
     - float64: the loss to FLOAT64_LOSS_TOL relative and every gradient
       tensor elementwise to FLOAT64_GRAD_TOL of its largest |value| (floored
@@ -827,7 +845,7 @@ def check_surface_step_against_cpu(cfg, model, it):
     from csbsr_tpu_torch.models import model_from_cfg
 
     dev, n = next(model.parameters()).device, CPU_CHECK_BATCH
-    hw = SURFACE_CPU_LR * int(cfg.MODEL.SCALE_FACTOR)
+    hw = lr_side * int(cfg.MODEL.SCALE_FACTOR)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     hr = torch.rand((n, 3, hw, hw), generator=gen, device=dev)
     seg = torch.zeros((n, 1, hw, hw), device=dev)
@@ -842,7 +860,7 @@ def check_surface_step_against_cpu(cfg, model, it):
     loss_fn, compute = build_loss_fn(cfg), model.dtype
     loss, grads = {}, {}
     for where in ("card", "cpu"):
-        for dtype in (torch.float64, torch.float32):
+        for dtype in dtypes:
             key = f"{where}_{str(dtype)[6:]}"
             loss[key], grads[key] = _step_grads(models[where], weights, data[where], phase,
                                                 dtype, loss_fn)
@@ -856,32 +874,35 @@ def check_surface_step_against_cpu(cfg, model, it):
     bad += [("float64 loss", rel("card_float64"))] if rel("card_float64") > FLOAT64_LOSS_TOL \
         else []
     bad += [(f"float64 {k}", e) for k, e in elem.items() if e > FLOAT64_GRAD_TOL]
-    loss32 = {"card_rel": rel("card_float32"), "cpu_rel": rel("cpu_float32")}
-    loss32["limit"] = max(FLOAT32_ENVELOPE * loss32["cpu_rel"], SURFACE_FLOAT32_FLOOR)
-    bad += [("float32 loss", loss32["card_rel"])] if not loss32["card_rel"] <= loss32["limit"] \
-        else []
-    group_of = grad_group_ids(model.named_parameters())
-    by_group = {}
-    for g, gid in (("SR_CORE", 0), ("KERNEL", 1), ("SEG", 2), ("BLURSKIP", 3)):
-        ks = [k for k, v in group_of.items() if v == gid]
-        if not ks:
-            continue
-        card_err = _rel_l2(grads["card_float32"], ref, ks)
-        cpu_err = _rel_l2(grads["cpu_float32"], ref, ks)
-        limit = max(FLOAT32_ENVELOPE * cpu_err, SURFACE_FLOAT32_FLOOR)
-        by_group[g] = {"tensors": len(ks), "card_rel_l2": card_err, "cpu_rel_l2": cpu_err,
-                       "limit": limit}
-        if not card_err <= limit:
-            bad.append((f"float32 group {g}", card_err))
+    report = {"iteration": it, "batch": n, "lr_hw": [lr_side] * 2, "loss": loss,
+              "float64_loss_rel_err": rel("card_float64"), "float64_loss_tol": FLOAT64_LOSS_TOL,
+              "float64_worst": sorted(((e, k) for k, e in elem.items()), reverse=True)[:3],
+              "float64_grad_tol": FLOAT64_GRAD_TOL}
+    if torch.float32 in dtypes:
+        loss32 = {"card_rel": rel("card_float32"), "cpu_rel": rel("cpu_float32")}
+        loss32["limit"] = max(FLOAT32_ENVELOPE * loss32["cpu_rel"], SURFACE_FLOAT32_FLOOR)
+        bad += [("float32 loss", loss32["card_rel"])] \
+            if not loss32["card_rel"] <= loss32["limit"] else []
+        group_of = grad_group_ids(model.named_parameters())
+        by_group = {}
+        for g, gid in (("SR_CORE", 0), ("KERNEL", 1), ("SEG", 2), ("BLURSKIP", 3)):
+            ks = [k for k, v in group_of.items() if v == gid]
+            if not ks:
+                continue
+            card_err = _rel_l2(grads["card_float32"], ref, ks)
+            cpu_err = _rel_l2(grads["cpu_float32"], ref, ks)
+            limit = max(FLOAT32_ENVELOPE * cpu_err, SURFACE_FLOAT32_FLOOR)
+            by_group[g] = {"tensors": len(ks), "card_rel_l2": card_err, "cpu_rel_l2": cpu_err,
+                           "limit": limit}
+            if not card_err <= limit:
+                bad.append((f"float32 group {g}", card_err))
+        report.update({"float32_loss": loss32, "float32_by_group": by_group,
+                       "float32_envelope": FLOAT32_ENVELOPE,
+                       "float32_floor": SURFACE_FLOAT32_FLOOR})
     if bad:
         raise AssertionError(f"train step at iteration {it} differs between the card and the "
                              f"CPU: {bad[:5]}; losses {loss}")
-    return {"iteration": it, "batch": n, "lr_hw": [SURFACE_CPU_LR] * 2, "loss": loss,
-            "float64_loss_rel_err": rel("card_float64"), "float64_loss_tol": FLOAT64_LOSS_TOL,
-            "float64_worst": sorted(((e, k) for k, e in elem.items()), reverse=True)[:3],
-            "float64_grad_tol": FLOAT64_GRAD_TOL, "float32_loss": loss32,
-            "float32_by_group": by_group, "float32_envelope": FLOAT32_ENVELOPE,
-            "float32_floor": SURFACE_FLOAT32_FLOOR}
+    return report
 
 
 def phase_surface(dev):
@@ -1007,6 +1028,138 @@ def phase_surface(dev):
     return paths
 
 
+# the baselines phase: the paper's other joint baselines, each the flagship
+# recipe with these overrides (DSRL and SrcNetSR predict no kernel, so the
+# KBPN SR loss, which divides the predicted kernel by its sum, is 0/0 for
+# them: they train with L1, as the DBPN recipe does)
+_DSRL = ["MODEL.SR", "DSRL", "MODEL.DETECTOR_TYPE", "DSRL", "SOLVER.SR_LOSS_FUNC", "L1"]
+BASELINES = {
+    "dsrl_resnet": _DSRL,
+    "dsrl_resnet_deconv": _DSRL + ["MODEL.DSRL_UPSAMPLE", "deconv"],
+    "dsrl_drn": _DSRL + ["TPU.DSRL_BACKBONE", "drn"],
+    "dsrl_mobilenet": _DSRL + ["TPU.DSRL_BACKBONE", "mobilenet"],
+    "dsrl_xception": _DSRL + ["TPU.DSRL_BACKBONE", "xception"],
+    "kbpn_segnet": ["MODEL.DETECTOR_TYPE", "SegNet"],
+    "srcnet_pspnet": ["MODEL.SR", "SrcNetSR", "SOLVER.SR_LOSS_FUNC", "L1"],
+}
+BASELINE_IMAGES, BASELINE_STEPS = 2, 3
+BASELINE_INT8 = ("dsrl_resnet", "kbpn_segnet", "srcnet_pspnet")
+# DSRL-ResNet's card-vs-CPU step runs at LR 32: at LR 16 its layers 3-4 are
+# 1 x 1, where 78 train-mode BatchNorms over the batch's 2 values make the
+# float64 step depend on the summation order (tests/test_torch_port_baselines.py)
+BASELINE_CPU_LR = 32
+
+
+def baseline_cfg(name):
+    """The flagship recipe with BASELINES[name], no pretrain windows, the seed."""
+    from csbsr_tpu_torch.config.flagship import flagship_cfg
+
+    cfg = flagship_cfg(SEED)
+    cfg.merge_from_list(ZOO_WINDOWS + BASELINES[name])
+    return cfg
+
+
+def phase_baselines(dev):
+    """DSRL (ResNet-101 with either chain, DRN-D-54, MobileNetV2, Xception),
+    KBPN + SegNet and SrcNetSR + PSPNet at full width from the seed's random
+    weights, bf16: 2 eval images of 448x448 through score_for_ss with the HD
+    bank, the model in float64 on the card against the CPU on a 16x16 LR
+    patch, 3 joint-phase steps of do_train at batch 6 of 224x224 crops, the
+    first the warm-up (launch counts reset just before and read just after
+    each path: 2 min-plus launches per image and per step); DSRL-ResNet's
+    float64 train step on the card against the CPU; the bf16-vs-int8
+    agreement and one int8 image for BASELINE_INT8. One JSON line per row,
+    then the phase's seconds. Returns (min-plus launch counts by path, the
+    int8 conv configurations its int8 runs made)."""
+    import tempfile
+
+    from csbsr_tpu_torch.data import IterationBasedLoader, SubsetView
+    from csbsr_tpu_torch.data.synthetic import SyntheticCrackSet
+    from csbsr_tpu_torch.engine.inference import score_for_ss
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.ops import cuda_build
+    from csbsr_tpu_torch.train import build_datasets, split_and_eval_batches
+
+    t_start = time.perf_counter()
+    paths, configs = {}, {}
+    with tempfile.TemporaryDirectory() as no_weights:
+        for name in BASELINES:
+            t0 = time.perf_counter()
+            cfg = baseline_cfg(name)
+            model = model_from_cfg(cfg, device=dev)
+            data = SyntheticCrackSet(cfg, BASELINE_IMAGES, HR_SIZE, dev, seed=SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_build.LAUNCHES.clear()
+            rows, summary, _ = score_for_ss(cfg, model, data, device=dev, test_aiu=True,
+                                            test_surface_distance=True, log_fn=lambda *a: None)
+            torch.cuda.synchronize()
+            eval_launches = dict(cuda_build.LAUNCHES)
+            eval_peak = torch.cuda.max_memory_allocated() / 1e9
+            paths[f"baselines_eval:{name}"] = eval_launches
+            # DSRL and SrcNetSR predict no kernel: PSNR_kernel 0/0, NaN, as in the JAX package
+            nan_ok = {"PSNR_kernel"} if cfg.MODEL.SR != "KBPN" else set()
+            bad = {k: v for k, v in summary.items() if not math.isfinite(v) and k not in nan_ok}
+            if bad or any(math.isfinite(summary[k]) for k in nan_ok) or \
+                    eval_launches.get("minplus_rows", 0) != 2 * BASELINE_IMAGES:
+                raise AssertionError(f"{name}: metrics {summary}, launches {eval_launches}")
+            vs_cpu = check_against_cpu(model, cfg, data.get(0)[0][:1, :, :16, :16],
+                                       torch.float64)
+
+            pool = build_datasets(cfg, synthetic=True)
+            train_idx, _ = split_and_eval_batches(cfg, pool, max_eval_batches=1)
+            b = cfg.SOLVER.BATCH_SIZE
+            batches = list(IterationBasedLoader(SubsetView(pool, train_idx), b, BASELINE_STEPS,
+                                                seed=cfg.SEED, num_workers=4))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_build.LAUNCHES.clear()
+            step_s, losses, _ = _do_train_steps(cfg, model, batches, len(train_idx),
+                                                weights_dir=os.path.join(no_weights, "pretrain"))
+            torch.cuda.synchronize()
+            train_launches = dict(cuda_build.LAUNCHES)
+            train_peak = torch.cuda.max_memory_allocated() / 1e9
+            paths[f"baselines_train:{name}"] = train_launches
+            if any(not all(math.isfinite(r[k]) for k in ("loss", "seg_loss", "sr_loss"))
+                   for r in losses) or \
+                    train_launches.get("minplus_rows", 0) != 2 * len(losses):
+                raise AssertionError(f"{name}: losses {losses}, launches {train_launches}")
+            report = {"phase": "baselines", "name": name, "overrides": BASELINES[name],
+                      "model": f"{cfg.MODEL.SR} + {cfg.MODEL.DETECTOR_TYPE}"
+                               + (f" ({cfg.TPU.DSRL_BACKBONE}, {cfg.MODEL.DSRL_UPSAMPLE})"
+                                  if cfg.MODEL.SR == "DSRL" else ""),
+                      "config": f"configs/config_csbsr_pspnet.yaml + overrides, random init, "
+                                f"seed {SEED}, bf16 compute, full width",
+                      "params": sum(p.numel() for p in model.parameters())}
+            eval_s = [r["seconds"] for r in rows]
+            timed = step_s[1:] or [math.nan]
+            report["eval"] = {"images": BASELINE_IMAGES, "image_hw": [HR_SIZE, HR_SIZE],
+                              "per_image_s": eval_s,
+                              "images_per_s_after_first": (len(eval_s) - 1) / sum(eval_s[1:]),
+                              "summary": summary, "peak_mem_gb": eval_peak,
+                              "launches": eval_launches, "minplus_launches_per_image": 2}
+            report["float64_vs_cpu"] = vs_cpu
+            report["train"] = {"batch": b, "crop_hw": list(cfg.INPUT.IMAGE_SIZE),
+                               "steps": len(losses), "step_s": step_s,
+                               "images_per_s_after_first": b * len(timed) / sum(timed),
+                               "losses": losses, "peak_mem_gb": train_peak,
+                               "launches": train_launches, "minplus_launches_per_step": 2}
+            if name == "dsrl_resnet":
+                report["float64_step_vs_cpu"] = check_surface_step_against_cpu(
+                    cfg, model, 1, lr_side=BASELINE_CPU_LR, dtypes=(torch.float64,))
+            report["seconds"] = time.perf_counter() - t0
+            emit(report)
+            del model
+            torch.cuda.empty_cache()
+            if name in BASELINE_INT8:
+                paths[f"baselines_int8:{name}"] = _zoo_int8_image(
+                    dev, name, baseline_cfg(name), configs,
+                    f"configs/config_csbsr_pspnet.yaml + {BASELINES[name]}", "baselines")
+    emit({"phase": "baselines", "rows": list(BASELINES),
+          "seconds": time.perf_counter() - t_start})
+    return paths, configs
+
+
 def _do_train_steps(cfg, model, batches, num_train_ds, **kw):
     """do_train over `batches` with logging at every step, in a temporary
     OUTPUT_DIR: (seconds of each step, each step's losses, the train state),
@@ -1049,9 +1202,10 @@ def check_against_cpu(model, cfg, patch, dtype=torch.float32, hold=True):
         """m's outputs, and for HRNet-OCR its heads' logits, whose sigmoids
         saturate with random weights (0 to the last bit on the seg map)"""
         out, hooks = {}, []
+        seg_model = getattr(m, "segmentation_model", None)  # DSRL has its parallel model
         for head in HEAD_LOGITS:
-            if hasattr(m.segmentation_model, head):
-                hooks.append(getattr(m.segmentation_model, head).register_forward_hook(
+            if hasattr(seg_model, head):
+                hooks.append(getattr(seg_model, head).register_forward_hook(
                     lambda mod, inp, o, k=head: out.__setitem__(f"{k}_logits", o)))
         try:
             with torch.inference_mode():
@@ -1128,10 +1282,11 @@ def _tti_run(cfg, model, data, out_dir, dev):
             "sr_shape": list(sr_u8.shape), "png_files": len(files)}, (sr_u8, seg, files)
 
 
-def phase_serve(dev):
+def phase_serve(dev, configs):
     """The serving half: TTI (bf16, int8), latency table, card vs CPU in int8,
-    one int8 image per zoo recipe, the int8 exactness check. Returns the
-    min-plus launch counts of its paths that run the HD bank."""
+    one int8 image per zoo recipe, the int8 exactness check over `configs`
+    (those the baselines phase collected) and its own. Returns the min-plus
+    launch counts of its paths that run the HD bank."""
     import tempfile
 
     from csbsr_tpu_torch import serve_latency
@@ -1148,7 +1303,7 @@ def phase_serve(dev):
     t_start = time.perf_counter()
     cfg = flagship_cfg(SEED)
     model = model_from_cfg(cfg, device=dev)
-    report, configs = {}, {}  # configs: the int8 conv configurations the recipes ran
+    report = {}  # configs: the int8 conv configurations the recipes ran
     with tempfile.TemporaryDirectory() as tmp:
         photos = os.path.join(tmp, "photos")
         os.makedirs(photos)
@@ -1205,7 +1360,8 @@ def phase_serve(dev):
 
     paths = {}
     for name, recipe in (("flagship", "config_csbsr_pspnet"),) + SERVED_ZOO:
-        paths[f"serve_int8:{name}"] = _zoo_int8_image(dev, name, recipe, configs)
+        paths[f"serve_int8:{name}"] = _zoo_int8_image(dev, name, zoo_cfg(recipe), configs,
+                                                      f"configs/{recipe}.yaml")
     exact = check_int8_exactness(dev, configs)
     emit({"phase": "serve", "part": "int8_exactness", "configs": exact,
           "seconds": time.perf_counter() - t_start})
@@ -1349,8 +1505,8 @@ def check_int8_against_cpu(cfg, dev):
             "seconds": time.perf_counter() - t0}
 
 
-def _zoo_int8_image(dev, name, recipe, configs):
-    """A zoo recipe's bf16-vs-int8 agreement on the patches of one 448x448
+def _zoo_int8_image(dev, name, cfg, configs, source, phase="serve"):
+    """A recipe's bf16-vs-int8 agreement on the patches of one 448x448
     image (int8_accuracy.agreement: SR PSNR, seg IoU at 0.5, largest seg
     deviation, kernel PSNR; it calibrates the int8 convs on those patches),
     then the image through score_for_ss with the HD bank in int8; returns
@@ -1362,7 +1518,6 @@ def _zoo_int8_image(dev, name, recipe, configs):
     from csbsr_tpu_torch.ops import cuda_build, quant
 
     t0 = time.perf_counter()
-    cfg = zoo_cfg(recipe)
     model = model_from_cfg(cfg, device=dev)
     data = SyntheticCrackSet(cfg, 1, HR_SIZE, dev, seed=SEED)
     patches = data.get(0)[0]
@@ -1383,7 +1538,7 @@ def _zoo_int8_image(dev, name, recipe, configs):
     if bad or launches.get("minplus_rows", 0) != 2 or not products:
         raise AssertionError(f"{name} int8: metrics {summary}, launches {launches}, "
                              f"int8 products {products}")
-    emit({"phase": "serve", "part": "zoo_int8", "recipe": f"configs/{recipe}.yaml", "name": name,
+    emit({"phase": phase, "part": "zoo_int8", "recipe": source, "name": name,
           "bf16_vs_int8": agree, "int8_products": sum(products.values()),
           "int8_summary": summary, "int8_image_s": int8_s, "launches": launches,
           "seconds": time.perf_counter() - t0})
@@ -1408,7 +1563,9 @@ def main():
     for name, recipe in ZOO:
         paths[f"zoo_eval:{name}"], paths[f"zoo_train:{name}"] = phase_zoo(dev, name, recipe)
     paths.update(phase_surface(dev))
-    paths.update(phase_serve(dev))
+    baseline_paths, configs = phase_baselines(dev)
+    paths.update(baseline_paths)
+    paths.update(phase_serve(dev, configs))
     for k in kernels:
         by_path = {path: launches.get(k["name"], 0) for path, launches in paths.items()}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)

@@ -26,8 +26,13 @@ weights, the joint/staged combiner and the pretrain-window overrides; and
     loss;
   - no SR network (SCALE_FACTOR 1 or SR bicubic): total = the seg loss,
     without the window overrides (the reference's combiner reaches neither
-    branch that applies them), sr_loss 0.
-DSRL raises.
+    branch that applies them), sr_loss 0;
+  - DSRL (MODEL.SR "DSRL"): total = DSRL_SR_WEIGHT * sr + DSRL_FA_WEIGHT *
+    fa + DSRL_SEG_WEIGHT * seg, the FA loss of the model's (fea_seg,
+    fea_sr) pair, also returned as "fa_loss"; the SR-pretrain window's
+    total is the SR loss, the seg-pretrain window's the seg loss.
+The KBPN SR loss needs a predicted kernel: with DBPN, SrcNetSR or DSRL
+(zero kernels) it is 0/0 in both packages, so their recipes use L1 or L2.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ import torch
 
 from ..losses import (bce, bce_dice, binary_dice, boundary_combo_loss, boundary_gdice_loss,
                       boundary_sdf, crack_oriented_exp_weight, crack_oriented_weight,
-                      cross_entropy_loss_rcf, generalized_boundary_combo_loss, kbpn_loss,
+                      cross_entropy_loss_rcf, fa_loss, generalized_boundary_combo_loss, kbpn_loss,
                       l1_per_sample, l2_per_sample,
                       segment_failure_oriented_exp_weight, segment_failure_oriented_weight,
                       weighted_bce)
@@ -47,10 +52,6 @@ from ..ops.resize import resize
 __all__ = ["build_seg_loss", "build_loss_fn"]
 
 _BOUNDARY_LOSSES = ("BoundaryCombo", "Boundary_GDice", "GeneralizedBoundaryCombo")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, queue 1")
 
 
 def build_seg_loss(cfg):
@@ -79,12 +80,10 @@ def build_seg_loss(cfg):
 
 def build_loss_fn(cfg) -> Callable:
     """-> fn(outputs, batch, phase) -> {"total", "seg_loss", "sr_loss"[,
-    "kernel_pred_2d"]}, scalars but the kernel.
+    "kernel_pred_2d" | "fa_loss"]}, scalars but the kernel.
 
     batch: {"lr": (B, 3, h, w), "hr": (B, 3, H, W), "seg": (B, 1, H, W),
     "kernel": (B, k, k)}; outputs: the joint model's dict."""
-    if cfg.MODEL.SR == "DSRL":
-        raise _not_ported("the DSRL loss combiner")
     seg_loss_fn, seg_per_pixel = build_seg_loss(cfg)
     needs_sdf = cfg.SOLVER.SEG_LOSS_FUNC in _BOUNDARY_LOSSES
     aux_w = float(cfg.SOLVER.SEG_AUX_LOSS_WEIGHT)
@@ -111,6 +110,8 @@ def build_loss_fn(cfg) -> Callable:
     sr_none = cfg.MODEL.SCALE_FACTOR == 1 or cfg.MODEL.SR == "bicubic"
     sr_seg_inv = bool(cfg.MODEL.SR_SEG_INV)
     sr_only = bool(cfg.DATASET.ONLY_IMAGES)
+    dsrl_w = (float(cfg.SOLVER.DSRL_SR_WEIGHT), float(cfg.SOLVER.DSRL_FA_WEIGHT),
+              float(cfg.SOLVER.DSRL_SEG_WEIGHT)) if cfg.MODEL.SR == "DSRL" else None
 
     def _co_weight(tgt):
         if w_variant == "linear":
@@ -210,6 +211,15 @@ def build_loss_fn(cfg) -> Callable:
             sr_loss = seg_loss.detach().mean() * sr_loss
 
         seg_mean, sr_mean = seg_loss.mean(), sr_loss.mean()
+        if dsrl_w is not None:
+            fa = fa_loss(outputs["fea_seg"].to(acc), outputs["fea_sr"].to(acc))
+            if phase["in_seg_pretrain"]:
+                total = seg_mean
+            elif phase["in_sr_pretrain"]:
+                total = sr_mean
+            else:
+                total = dsrl_w[0] * sr_mean + dsrl_w[1] * fa + dsrl_w[2] * seg_mean
+            return {"total": total, "seg_loss": seg_mean, "sr_loss": sr_mean, "fa_loss": fa}
         if sr_none or phase["in_seg_pretrain"]:
             total = seg_mean
         elif phase["in_sr_pretrain"]:

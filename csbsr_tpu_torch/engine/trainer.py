@@ -41,7 +41,8 @@ from ..metrics.device_metrics import iou_thresholds, psnr, ssim
 from ..models.build import BLURSKIP_TYPES
 from ..ops.blur import degrade, identity_kernels, make_kernel_sampler
 from ..utils.device import full_fp32
-from ..utils.pretrained import WEIGHTS_DIR, load_imagenet_backbones, load_pretrained_sr
+from ..utils.pretrained import (WEIGHTS_DIR, load_imagenet_backbones, load_pretrained_dsrl,
+                                load_pretrained_sr)
 from .losses_glue import build_loss_fn
 from .phase import compute_phase, phase_config_from_cfg
 from .train_state import TrainState, create_train_state, group_multipliers
@@ -214,13 +215,15 @@ def do_train(cfg, model, train_loader, eval_batches=None, *, resume_iter: int = 
     `eval_batches` are {"hr", "seg", "degrade_seed"} host batches, degraded
     on the device with that seed at each eval. Before the first step the
     ImageNet backbones and the pretrained SR weights found in `weights_dir`
-    are loaded (utils/pretrained.py), then a resumed run's checkpoint."""
+    and DSRL's in its parent directory are loaded (utils/pretrained.py),
+    then a resumed run's checkpoint."""
     from ..utils.logging import MetricsLogger
 
     device = next(model.parameters()).device
     pc = phase_config_from_cfg(cfg, num_train_ds or len(train_loader))
     load_imagenet_backbones(cfg, model, weights_dir, log_fn)
     load_pretrained_sr(cfg, model, weights_dir, log_fn)
+    load_pretrained_dsrl(cfg, model, os.path.dirname(weights_dir), log_fn)
     state = create_train_state(cfg, model, pc)
     if resume_iter:
         restore_checkpoint(cfg.OUTPUT_DIR, state, resume_iter)

@@ -198,13 +198,23 @@ class DeconvBlock(_BlockBase):
 
 
 def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
-           bias=True, generator=None) -> Conv2d:
+           bias=True, generator=None, groups=1) -> Conv2d:
     """A plain conv with flax's default init (lecun normal, zero bias)."""
-    conv = Conv2d(in_ch, out_ch, kernel_size, stride, padding, dilation, bias=bias)
+    conv = Conv2d(in_ch, out_ch, kernel_size, stride, padding, dilation, groups, bias=bias)
     lecun_normal_(conv.weight, generator)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+def deconv2d(in_ch, out_ch, kernel_size, stride, padding, bias=True,
+             generator=None) -> ConvTranspose2d:
+    """torch ConvTranspose2d(k, s, p) with flax's default init."""
+    deconv = ConvTranspose2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+    lecun_normal_(deconv.weight, generator)
+    if bias:
+        nn.init.zeros_(deconv.bias)
+    return deconv
 
 
 # ------------------------------------------------------------ int8 serving

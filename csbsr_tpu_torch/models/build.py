@@ -8,22 +8,30 @@ forward(lr, kernel_gt_vec=None, use_gt_kernel=False, clip_sr=False, generator=No
 `generator` draws the heads' train-mode dropout masks; `sr_targets` is the
 HR image, which SCALE_FACTOR 1 takes as its SR output.
 
-SR: KBPN, or DBPN, whose kernel output is zeros in the compute dtype (the
-JAX package's, so kernel-PSNR of a DBPN model is that of 0/0, NaN). Without
+SR: KBPN, or DBPN or SrcNetSR, whose kernel output is zeros in the compute
+dtype (the JAX package's, so kernel-PSNR of such a model is that of 0/0,
+NaN). Without
 an SR network (SCALE_FACTOR 1: the SR output is `sr_targets`; SR "bicubic":
 a bicubic resize of the LR) the kernel is zeros too. SR "none" needs
 SCALE_FACTOR 1; the JAX package fails on it otherwise, and the port raises
 a ValueError.
 Detectors: PSPNet, u-net16, PSPNet_BlurSkip / _origin / Reduct (the kernel
 vector conditions the skip ladder; Reduct first resizes the k_out^2 kernel
-to KERNEL_SIZE^2, bicubic with align_corners), HRNet_OCR and CrackFormer
-(aux = its five side maps). `aux` is None for a head without one (u-net16).
+to KERNEL_SIZE^2, bicubic with align_corners), HRNet_OCR, CrackFormer
+(aux = its five side maps) and SegNet. `aux` is None for a head without one
+(u-net16, SegNet).
 `sr_only` (SR-only pretraining, DATASET.ONLY_IMAGES) builds no seg head and
 returns seg = aux = None. `sr_seg_inv` (MODEL.SR_SEG_INV) segments the LR
 image (un-normalised; a BlurSkip ladder conditioned on the GT kernel
 vector), then super-resolves that 1-channel map, which is both "sr" and
-"seg"; "lr_seg" is the LR map. DSRL and SrcNetSR / SegNet raise and wait in
-ROADMAP.md, queue 1.
+"seg"; "lr_seg" is the LR map.
+
+SR and DETECTOR_TYPE both "DSRL" build the parallel model instead
+(`parallel_model`, models/dsrl.py, backbone TPU.DSRL_BACKBONE): with
+MODEL.DSRL_UPSAMPLE "deconv" its x4 deconv chain gives the outputs at x4;
+otherwise the x2 chain, then a resize to x SCALE_FACTOR of the LR
+(DSRL_UPSAMPLE's method, align_corners). It adds "fea_seg" and "fea_sr"
+(the FA loss's pair) to the outputs; its kernel is zeros, its aux None.
 """
 from __future__ import annotations
 
@@ -32,9 +40,11 @@ import torch.nn as nn
 
 from .crackformer import CrackFormer
 from .dbpn import DBPN
+from .dsrl import DSRL
 from .hrnet_ocr import HRNetW48OCR
 from .kbpn import KBPN
 from .pspnet import PSPNet, PSPNetBlurSkip
+from .srcnet import SegNet, SrcNetSR
 from .unet import UNet16
 from ..ops.resize import resize
 from ..utils.device import compute_dtype, resolve_device, upcast
@@ -42,9 +52,9 @@ from ..utils.device import compute_dtype, resolve_device, upcast
 SEG_RETURNS_AUX = ("PSPNet", "PSPNet_BlurSkip", "PSPNet_BlurSkip_origin",
                    "PSPNet_BlurSkipReduct", "HRNet_OCR", "CrackFormer")
 BLURSKIP_TYPES = ("PSPNet_BlurSkip", "PSPNet_BlurSkip_origin", "PSPNet_BlurSkipReduct")
-SR_TYPES = ("KBPN", "DBPN")
+SR_TYPES = ("KBPN", "DBPN", "SrcNetSR")
 SR_NONE_TYPES = ("bicubic", "none")
-DETECTOR_TYPES = ("PSPNet", "u-net16", "HRNet_OCR", "CrackFormer") + BLURSKIP_TYPES
+DETECTOR_TYPES = ("PSPNet", "u-net16", "HRNet_OCR", "CrackFormer", "SegNet") + BLURSKIP_TYPES
 
 
 def _norm_sr(sr: torch.Tensor, method: str, mean, std) -> torch.Tensor:
@@ -70,17 +80,19 @@ class CSBSRModel(nn.Module):
                  zero_pad_kernel=False, up_sample_method="deconv", norm_sr_output="all",
                  input_mean=(0.4741, 0.4937, 0.5048), input_std=(0.1621, 0.1532, 0.1523),
                  pspnet_backend="resnet34", sr_seg_inv=False, sr_only=False,
+                 dsrl_upsample="bilinear", dsrl_backbone="resnet",
                  dtype=torch.float32, generator=None):
         super().__init__()
         has_sr = scale_factor != 1 and sr != "bicubic"
+        self.dsrl = sr == detector == "DSRL"
         if sr == "none" and has_sr:
             raise ValueError(f'MODEL.SR "none" needs MODEL.SCALE_FACTOR 1, not {scale_factor}')
-        if (has_sr and sr not in SR_TYPES) or sr == "DSRL" or (
-                not sr_only and detector not in DETECTOR_TYPES):
+        if not self.dsrl and ((has_sr and sr not in SR_TYPES) or (
+                not sr_only and detector not in DETECTOR_TYPES)):
             raise NotImplementedError(
                 f"SR={sr!r} with DETECTOR_TYPE={detector!r} (SCALE_FACTOR {scale_factor}) is "
-                f"not ported yet (SR {SR_TYPES + SR_NONE_TYPES}, detectors {DETECTOR_TYPES}); "
-                "see ROADMAP.md, queue 1 (rest of the zoo)"
+                f"not ported yet (SR {SR_TYPES + SR_NONE_TYPES}, detectors {DETECTOR_TYPES}, "
+                "or both DSRL); see ROADMAP.md, queue 1 (rest of the zoo)"
             )
         self.sr, self.detector, self.scale_factor = sr, detector, scale_factor
         self.has_sr, self.sr_seg_inv, self.sr_only = has_sr, sr_seg_inv, sr_only
@@ -89,6 +101,11 @@ class CSBSRModel(nn.Module):
         self.input_mean, self.input_std = tuple(input_mean), tuple(input_std)
         self.dtype = dtype
         g = generator
+        if self.dsrl:
+            self.dsrl_upsample = dsrl_upsample
+            self.parallel_model = DSRL(num_classes, 4 if dsrl_upsample == "deconv" else 2,
+                                       dsrl_backbone, generator=g)
+            return
         channels = 1 if sr_seg_inv else 3
         if has_sr and sr == "KBPN":
             self.sr_model = KBPN(
@@ -98,9 +115,11 @@ class CSBSRModel(nn.Module):
                 sum_lr_error_pos=sum_lr_error_pos, zero_pad_kernel=zero_pad_kernel,
                 num_channels=channels, generator=g,
             )
-        elif has_sr:
+        elif has_sr and sr == "DBPN":
             self.sr_model = DBPN(scale_factor=scale_factor, num_channels=channels,
                                  num_stages=num_stages, generator=g)
+        elif has_sr:
+            self.sr_model = SrcNetSR(scale_factor=scale_factor, generator=g)
         if sr_only:
             return
         if detector == "PSPNet":
@@ -111,6 +130,8 @@ class CSBSRModel(nn.Module):
             seg = HRNetW48OCR(num_classes, generator=g)
         elif detector == "CrackFormer":
             seg = CrackFormer(generator=g)
+        elif detector == "SegNet":
+            seg = SegNet(generator=g)
         else:
             reduct = detector == "PSPNet_BlurSkipReduct"
             seg = PSPNetBlurSkip(num_classes, (estimate_ksize if reduct else ksize_output) ** 2,
@@ -153,8 +174,23 @@ class CSBSRModel(nn.Module):
             return self.segmentation_model(x), None
         return self.segmentation_model(x, generator)
 
+    def _forward_dsrl(self, x, clip_sr, generator):
+        seg, sr, fea_seg, fea_sr = self.parallel_model(x.to(self.dtype), generator)
+        if self.dsrl_upsample != "deconv":
+            out_hw = (x.shape[2] * self.scale_factor, x.shape[3] * self.scale_factor)
+            sr = resize(sr, out_hw, method=self.dsrl_upsample, align_corners=True)
+            seg = resize(seg, out_hw, method=self.dsrl_upsample, align_corners=True)
+        if clip_sr:
+            sr = sr.clamp(0.0, 1.0)
+        kernel = torch.zeros((x.shape[0], self.ksize_output ** 2), dtype=self.dtype,
+                             device=x.device)
+        return {"sr": sr, "kernel": kernel, "seg": seg, "aux": None, "fea_seg": fea_seg,
+                "fea_sr": fea_sr}
+
     def forward(self, x, kernel_gt_vec=None, use_gt_kernel=False, clip_sr: bool = False,
                 generator=None, sr_targets=None):
+        if self.dsrl:
+            return self._forward_dsrl(x, clip_sr, generator)
         if self.sr_seg_inv:
             lr_seg, lr_aux = self._forward_ss(x, kernel_gt_vec, generator)
             seg, kernel_vec = self._forward_sr(lr_seg, kernel_gt_vec, use_gt_kernel, sr_targets)
@@ -192,6 +228,7 @@ def model_from_cfg(cfg, device=None, dtype=None, seed=None) -> CSBSRModel:
         input_mean=cfg.INPUT.MEAN, input_std=cfg.INPUT.STD,
         pspnet_backend=cfg.TPU.PSPNET_BACKEND, sr_seg_inv=bool(cfg.MODEL.SR_SEG_INV),
         sr_only=bool(cfg.DATASET.ONLY_IMAGES),
+        dsrl_upsample=cfg.MODEL.DSRL_UPSAMPLE, dsrl_backbone=cfg.TPU.DSRL_BACKBONE,
         dtype=compute_dtype(cfg) if dtype is None else dtype,
         generator=gen,
     )

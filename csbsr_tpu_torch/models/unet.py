@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import ConvTranspose2d, conv2d, lecun_normal_
+from .blocks import conv2d, deconv2d
 from ..ops.resize import resize
 
 
@@ -45,9 +45,7 @@ class DecoderBlockV2(nn.Module):
         super().__init__()
         g = generator
         if method == "deconv":
-            deconv = ConvTranspose2d(middle_ch, out_ch, 4, 2, 1)
-            lecun_normal_(deconv.weight, g)
-            nn.init.zeros_(deconv.bias)
+            deconv = deconv2d(middle_ch, out_ch, 4, 2, 1, generator=g)
             self.block = nn.Sequential(ConvRelu(in_ch, middle_ch, g), deconv, nn.ReLU())
         elif method == "pixel_shuffle":
             self.block = nn.Sequential(ConvRelu(in_ch, middle_ch, g), nn.PixelShuffle(2),

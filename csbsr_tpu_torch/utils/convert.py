@@ -9,8 +9,11 @@ released reference `.pth` loads the same way.
 The name translators are this package's own copies of
 `csbsr_tpu/utils/translators.py`: translate_kbpn, translate_dbpn,
 translate_unet16, translate_pspnet (with the BlurSkip ladder),
-translate_hrnet_ocr (the HRNetW48OCR head) and translate_crackformer; which
-one a submodule takes is read off its tree (`_translator_for`). The layout
+translate_hrnet_ocr (the HRNetW48OCR head), translate_crackformer,
+translate_srcnet_sr, translate_segnet and make_translate_dsrl (whose
+MobileNetV2 and Xception backbones the JAX package's copy does not name:
+here they take pytorch-deeplab-xception's names, as models/dsrl.py does);
+which one a submodule takes is read off its tree (`_translator_for`). The layout
 rules are those of
 `csbsr_tpu/utils/torch_convert.py:export_params_to_torch_names`:
 conv HWIO -> OIHW, the same permutation for transposed convs
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["translate_kbpn", "translate_dbpn", "translate_unet16", "translate_pspnet",
-           "translate_hrnet_ocr", "translate_crackformer", "convert_tree",
+           "translate_hrnet_ocr", "translate_crackformer", "translate_srcnet_sr",
+           "translate_segnet", "make_translate_dsrl", "convert_tree",
            "state_dict_from_jax", "quant_from_jax", "drop_unused_reference_keys"]
 
 _KIND = {"kernel": "kernel", "bias": "bias", "scale": "scale", "alpha": "alpha",
@@ -291,6 +295,138 @@ def translate_crackformer(path: Tuple, kind: str) -> Optional[str]:
     return None
 
 
+def translate_srcnet_sr(path: Tuple, kind: str) -> Optional[str]:
+    """SrcNetSR flax path -> torch key: sconv1/2, upscaling, rir.conv,
+    rir.res_groups.<g>.conv and .res_blocks.<b>.{fe1.0, fe1.2, attention.1,
+    attention.3}."""
+    p = [str(x) for x in path[:-1]]
+    if not p:
+        return None
+    sfx, head = _SFX[kind], p[0]
+    if head in ("sconv1", "sconv2", "upscaling"):
+        return f"{head}.{sfx}"
+    if head == "rir_conv":
+        return f"rir.conv.{sfx}"
+    m = re.match(r"rg(\d+)_conv$", head)
+    if m:
+        return f"rir.res_groups.{m.group(1)}.conv.{sfx}"
+    m = re.match(r"rg(\d+)_rb(\d+)$", head)
+    sub = {"fe1_0": "fe1.0", "fe1_1": "fe1.2", "att_0": "attention.1",
+           "att_1": "attention.3"}.get(p[1]) if m else None
+    return f"rir.res_groups.{m.group(1)}.res_blocks.{m.group(2)}.{sub}.{sfx}" if sub else None
+
+
+_SEGNET_DECODER_CONVS = {"5": 3, "4": 3, "3": 3, "2": 2, "1": 1}
+
+
+def translate_segnet(path: Tuple, kind: str) -> Optional[str]:
+    """SegNet flax path -> torch key: the flax names count a decoder stage's
+    convs in application order, the reference's from n down to 1, and its
+    final conv (flax convDe1f) is ConvDe11, so flax De1 1 is ConvDe12."""
+    p = [str(x) for x in path[:-1]]
+    if not p:
+        return None
+    sfx = _SFX[kind]
+    if p[0] == "convDe1f":
+        return f"ConvDe11.{sfx}"
+    m = re.match(r"(conv|bn)(En|De)(\d)(\d)$", p[0])
+    if not m:
+        return None
+    kindc, part, s, j = m.groups()
+    if part == "De":
+        j = "2" if s == "1" else str(_SEGNET_DECODER_CONVS[s] + 1 - int(j))
+    return f"{'Conv' if kindc == 'conv' else 'BN'}{part}{s}{j}.{sfx}"
+
+
+# MobileNetV2: InvertedResidual.conv Sequential slots, expand ratio 1 (the
+# first block) and 6
+_MOBILENET_SLOTS = ({"dw": 0, "dw_bn": 1, "pw_linear": 3, "pw_linear_bn": 4},
+                    {"pw": 0, "pw_bn": 1, "dw": 3, "dw_bn": 4, "pw_linear": 6,
+                     "pw_linear_bn": 7})
+_SEPARABLE = {"dw": "conv1", "dw_bn": "bn", "pointwise": "pointwise"}
+_XCEPTION_NO_FIRST_RELU = ("block1", "block2")  # start_with_relu False: rep[1:]
+
+
+def _dsrl_backbone(p, sfx) -> Optional[str]:
+    """A DSRL backbone path (after "backbone") -> the torch key below `backbone.`."""
+    sub = p[0]
+    if sub in ("conv1", "bn1", "conv2", "bn2") or re.match(r"bn[345]$", sub):
+        return f"{sub}.{sfx}"
+    m = re.match(r"conv([345])$", sub)  # Xception's exit separable convs
+    if m:
+        return f"{sub}.{_SEPARABLE[p[1]]}.{sfx}" if p[1] in _SEPARABLE else None
+    # DRN-D-54: layer0 and the conv stacks are (conv, BN, ReLU) Sequentials
+    if sub in ("layer0_conv", "layer0_bn"):
+        return f"layer0.{0 if sub.endswith('conv') else 1}.{sfx}"
+    m = re.match(r"layer(\d)_(conv|bn)(\d)$", sub)
+    if m:
+        return f"layer{m.group(1)}.{3 * int(m.group(3)) + (m.group(2) == 'bn')}.{sfx}"
+    m = re.match(r"layer(\d)_(\d+)$", sub)  # ResNet / DRN bottlenecks
+    if m:
+        inner = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}.get(p[1], p[1])
+        return f"layer{m.group(1)}.{m.group(2)}.{inner}.{sfx}"
+    if sub in ("stem_conv", "stem_bn"):  # MobileNetV2
+        return f"features.0.{0 if sub == 'stem_conv' else 1}.{sfx}"
+    m = re.match(r"ir(\d+)$", sub)
+    if m:
+        slot = _MOBILENET_SLOTS[m.group(1) != "0"].get(p[1])
+        return None if slot is None else f"features.{int(m.group(1)) + 1}.conv.{slot}.{sfx}"
+    m = re.match(r"block(\d+)$", sub)  # Xception
+    if m:
+        if p[1] in ("skip", "skip_bn"):
+            return f"{sub}.{'skip' if p[1] == 'skip' else 'skipbn'}.{sfx}"
+        shift = 0 if sub in _XCEPTION_NO_FIRST_RELU else 1
+        ms = re.match(r"sep(\d+)(_bn)?$", p[1])
+        if not ms:
+            return None
+        idx = 3 * int(ms.group(1)) + shift
+        if ms.group(2):
+            return f"{sub}.rep.{idx + 1}.{sfx}"
+        return f"{sub}.rep.{idx}.{_SEPARABLE[p[2]]}.{sfx}" if p[2] in _SEPARABLE else None
+    return None
+
+
+def make_translate_dsrl(scale_factor: int = 4):
+    """DSRL flax path -> torch key, for the deconv chain of `scale_factor`
+    (4: DeepLabx4's up_sr_0..3; 2: DeepLab's up_sr_1..3, the flax chain
+    counting from 0)."""
+    offset = 0 if scale_factor == 4 else 1
+    decoder = {"conv1": "conv1", "bn1": "bn1", "last0": "last_conv.0",
+               "last0_bn": "last_conv.1", "last1": "last_conv.4", "last1_bn": "last_conv.5",
+               "last2": "last_conv.8"}
+    edsr = {"conv0": "conv.0", "conv1": "conv.2", "res": "residual_upsampler.0"}
+
+    def translate(path: Tuple, kind: str) -> Optional[str]:
+        p = [str(x) for x in path[:-1]]
+        if not p:
+            return None
+        sfx, head = _SFX[kind], p[0]
+        if head == "backbone":
+            t = _dsrl_backbone(p[1:], sfx)
+            return f"backbone.{t}" if t else None
+        if head == "aspp":
+            m = re.match(r"aspp(\d)_(conv|bn)$", p[1])
+            if m:
+                leaf = "atrous_conv" if m.group(2) == "conv" else "bn"
+                return f"aspp.aspp{m.group(1)}.{leaf}.{sfx}"
+            sub = {"gap_conv": "global_avg_pool.1", "gap_bn": "global_avg_pool.2",
+                   "conv1": "conv1", "bn1": "bn1"}.get(p[1])
+            return f"aspp.{sub}.{sfx}" if sub else None
+        if head in ("decoder", "sr_decoder"):
+            return f"{head}.{decoder[p[1]]}.{sfx}" if p[1] in decoder else None
+        m = re.match(r"up_(sr|edsr)_(\d)$", head)
+        if m:
+            base = f"up_{m.group(1)}_{int(m.group(2)) + offset}"
+            if m.group(1) == "sr":
+                return f"{base}.{sfx}"
+            return f"{base}.{edsr[p[1]]}.{sfx}" if p[1] in edsr else None
+        sub = {"up_conv_last": "up_conv_last", "pointwise_conv": "pointwise.0",
+               "pointwise_bn": "pointwise.1"}.get(head)
+        return f"{sub}.{sfx}" if sub else None
+
+    return translate
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -314,8 +450,14 @@ def _to_torch_layout(w: np.ndarray, kind: str) -> np.ndarray:
 def _translator_for(top: str, tree: Dict):
     """The translator of submodule `top`, read off the names in its tree."""
     if top == "sr_model":
+        if "sconv1" in tree:
+            return translate_srcnet_sr
         return translate_dbpn if "feat0" in tree else translate_kbpn
+    if top == "parallel_model":
+        return make_translate_dsrl(4 if "up_sr_3" in tree else 2)
     if top == "segmentation_model":
+        if "convEn11" in tree:
+            return translate_segnet
         if "backbone" in tree:
             return translate_hrnet_ocr
         if "enc0" in tree:
@@ -373,12 +515,14 @@ def quant_from_jax(quant: Dict) -> Dict[str, torch.Tensor]:
     return out
 
 # parameters a released reference checkpoint holds that its forward never
-# uses: CrackFormer's Down3/4/5 declare a third block and call the second twice
-_UNUSED_REFERENCE_KEYS = re.compile(r"^(segmentation_model\.)?down[345]\.nn3\.")
+# uses: CrackFormer's Down3/4/5 declare a third block and call the second
+# twice; SegNet declares a BatchNorm for its final conv
+_UNUSED_REFERENCE_KEYS = re.compile(r"^(segmentation_model\.)?(down[345]\.nn3|BNDe11)\.")
 
 
 def drop_unused_reference_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A reference state dict without the parameters the port does not
     declare because the reference never uses them (CrackFormer's
-    `down{3,4,5}.nn3`), so that a strict load reports nothing unexpected."""
+    `down{3,4,5}.nn3`, SegNet's `BNDe11`), so that a strict load reports
+    nothing unexpected."""
     return {k: v for k, v in sd.items() if not _UNUSED_REFERENCE_KEYS.match(k)}

@@ -7,7 +7,8 @@
    VGG16 (`vgg16*.pth`) into KBPN's `feat` head and U-Net16's encoder,
    ResNet (`<TPU.PSPNET_BACKEND>*.pth`) into PSPNet's `feats` extractor,
    HRNet-W48 (`hrnetv2_w48_imagenet_pretrained.pth`, else `hrnetv2_w48*.pth`)
-   into HRNet-OCR's `backbone`. Each is a partial load: the tensors the file
+   into HRNet-OCR's `backbone`, ResNet-101 (`resnet101*.pth`) into DSRL's
+   `backbone` when TPU.DSRL_BACKBONE is "resnet". Each is a partial load: the tensors the file
    holds under the torchvision name of a port tensor (the tables below, the
    port's copy of `csbsr_tpu/utils/translators.py:imagenet_*`); a shape that
    disagrees skips that file.
@@ -17,12 +18,18 @@
    KERNEL_SIZE differs from KERNEL_SIZE_OUTPUT), unless MODEL.SR_SCRATCH. The
    port's modules carry the reference's names, so after `strip_prefixes`
    the file is a strict `load_state_dict` on `sr_model`; a file that lacks a
-   tensor of it, or holds one of another shape, is skipped.
+   tensor of it, or holds one of another shape, is skipped. SrcNetSR has
+   no file name here, as in the JAX package (ROADMAP.md, section 3).
+3. `load_pretrained_dsrl`: DSRL's released weights, `DSRLx4.pth` with
+   MODEL.DSRL_UPSAMPLE "deconv" (the x4 chain), else `DSRL.pth`, unless
+   MODEL.SR_SCRATCH; only with the ResNet backbone, the one they hold. After
+   stripping `module.` and `parallel_model.` the file is a strict load on
+   `parallel_model`, or is skipped as in 2.
 
 Files are looked up in `weights_dir`, by default the reference's relative
-`weights/pretrain`; an absent file is logged and training starts from the
-random weights, as in the JAX package. No weights are fetched. DSRL's
-loader waits with the DSRL model (ROADMAP.md, queue 1).
+`weights/pretrain`, DSRL's one level up (`weights/DSRL.pth`, as in the JAX
+package); an absent file is logged and training starts from the random
+weights, as in the JAX package. No weights are fetched.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import torch
 from .convert import _UNET_ENC
 
 __all__ = ["WEIGHTS_DIR", "load_torch_state_dict", "strip_prefixes", "sr_checkpoint_name",
-           "load_imagenet_backbones", "load_pretrained_sr"]
+           "load_imagenet_backbones", "load_pretrained_sr", "load_pretrained_dsrl"]
 
 WEIGHTS_DIR = os.path.join("weights", "pretrain")
 # torchvision vgg16.features indices of KBPN's feat convs (the reference
@@ -97,6 +104,11 @@ def _imagenet_jobs(cfg, model, weights_dir):
     jobs = []
     sr = getattr(model, "sr_model", None)
     seg = getattr(model, "segmentation_model", None)
+    dsrl = getattr(model, "parallel_model", None)
+    if dsrl is not None and cfg.TPU.DSRL_BACKBONE == "resnet":
+        path = _find_weight(weights_dir, "resnet101*.pth")
+        if path:
+            jobs.append((dsrl, _strip("backbone."), path, "ResNet101->DSRL.backbone"))
     vgg = _find_weight(weights_dir, "vgg16*.pth")
     if cfg.MODEL.SR == "KBPN" and sr is not None and vgg:
         feat = _vgg_table({f"feat.{2 * i}": v for i, v in enumerate(_KBPN_FEAT_VGG_IDX)})
@@ -141,6 +153,21 @@ def load_imagenet_backbones(cfg, model, weights_dir: str = WEIGHTS_DIR, log_fn=p
     return total
 
 
+def _load_whole(module, sd, path, what, log_fn) -> bool:
+    """A strict load of `sd` on `module` when it holds every tensor of it
+    (the BatchNorm step counters aside) at its shape; else logged, False."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    bad = [k for k in own if k in sd and sd[k].shape != own[k].shape]
+    if missing or bad:
+        log_fn(f"(pretrained {what} conversion incomplete: {len(missing)} tensors missing, "
+               f"{len(bad)} of another shape, e.g. {(missing + bad)[:3]}; training from scratch)")
+        return False
+    module.load_state_dict({k: sd.get(k, v) for k, v in own.items()}, strict=True)
+    log_fn(f"{what} pretrained model was loaded from {path}")
+    return True
+
+
 @torch.no_grad()
 def load_pretrained_sr(cfg, model, weights_dir: str = WEIGHTS_DIR, log_fn=print) -> bool:
     """The SR network's pretrained weights, when found; returns whether loaded."""
@@ -151,14 +178,23 @@ def load_pretrained_sr(cfg, model, weights_dir: str = WEIGHTS_DIR, log_fn=print)
     if not os.path.isfile(path):
         log_fn(f"(pretrained SR weights not found at {path}; training from scratch)")
         return False
-    sd = strip_prefixes(load_torch_state_dict(path))
-    own = model.sr_model.state_dict()
-    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
-    bad = [k for k in own if k in sd and sd[k].shape != own[k].shape]
-    if missing or bad:
-        log_fn(f"(pretrained SR conversion incomplete: {len(missing)} tensors missing, "
-               f"{len(bad)} of another shape, e.g. {(missing + bad)[:3]}; training from scratch)")
+    return _load_whole(model.sr_model, strip_prefixes(load_torch_state_dict(path)), path, "SR",
+                       log_fn)
+
+
+@torch.no_grad()
+def load_pretrained_dsrl(cfg, model, weights_dir: str = os.path.dirname(WEIGHTS_DIR),
+                         log_fn=print) -> bool:
+    """DSRL's released weights, when found; returns whether loaded."""
+    if not hasattr(model, "parallel_model") or cfg.MODEL.SR_SCRATCH:
         return False
-    model.sr_model.load_state_dict({k: sd.get(k, v) for k, v in own.items()}, strict=True)
-    log_fn(f"SR pretrained model was loaded from {path}")
-    return True
+    if cfg.TPU.DSRL_BACKBONE != "resnet":
+        log_fn(f"(DSRL backbone {cfg.TPU.DSRL_BACKBONE!r}: released weights not applicable)")
+        return False
+    path = os.path.join(weights_dir,
+                        "DSRLx4.pth" if cfg.MODEL.DSRL_UPSAMPLE == "deconv" else "DSRL.pth")
+    if not os.path.isfile(path):
+        log_fn(f"(pretrained DSRL weights not found at {path}; training from scratch)")
+        return False
+    sd = strip_prefixes(load_torch_state_dict(path), ("module.", "parallel_model."))
+    return _load_whole(model.parallel_model, sd, path, "DSRL", log_fn)

@@ -9,7 +9,9 @@ Tolerance: exact (`torch.equal`); see csbsr_tpu_torch/ops/minplus.py. The
 recipes of configs/ other than the flagship (one forward each, full width,
 2 KBPN stages, LR 16 x 16) are held against the same weights on the CPU with
 TF32 off, in float32 to 1e-3 of each output's largest |value| (the bound
-`chip_smoke.py` holds the flagship to) and in float64 to 1e-6. The int8
+`chip_smoke.py` holds the flagship to) and in float64 to 1e-6, and so are
+the paper's other joint baselines (DSRL with each backbone, SegNet,
+SrcNetSR; SegNet in float64 only). The int8
 convolution's `_int_mm` route (ops/quant.py) equals its float64 plain
 version exactly (`torch.equal` on the int32 accumulators) at the serving
 configurations: 3x3, 1x1, 7x7 s2, dilated, k8 s4, grouped, and the k8 s4 p2
@@ -108,6 +110,54 @@ def test_recipe_forward_on_cuda_equals_cpu(recipe, detector, dtype):
                     lambda mod, inp, o, k=head: logits.__setitem__(k, o))
         with torch.inference_mode(), full_fp32():
             outs[device] = {**model(x.to(device), clip_sr=True), **logits}
+    for key, ref in outs["cpu"].items():
+        if ref is None:
+            assert outs["cuda"][key] is None
+            continue
+        scale = float(ref.abs().max())
+        err = float((outs["cuda"][key].cpu() - ref).abs().max())
+        assert (err / scale if scale else err) <= TOLS[dtype], (key, err, scale)
+
+
+_DSRL = ["MODEL.SR", "DSRL", "MODEL.DETECTOR_TYPE", "DSRL"]
+# the paper's other joint baselines: overrides of the flagship recipe
+BASELINES = {"dsrl_resnet": _DSRL, "dsrl_resnet_deconv": _DSRL + ["MODEL.DSRL_UPSAMPLE", "deconv"],
+             "dsrl_drn": _DSRL + ["TPU.DSRL_BACKBONE", "drn"],
+             "dsrl_mobilenet": _DSRL + ["TPU.DSRL_BACKBONE", "mobilenet"],
+             "dsrl_xception": _DSRL + ["TPU.DSRL_BACKBONE", "xception"],
+             "segnet": ["MODEL.DETECTOR_TYPE", "SegNet"], "srcnet": ["MODEL.SR", "SrcNetSR"]}
+# SegNet is held in float64 only, for CrackFormer's reason (its max-unpool)
+BASELINE_CASES = [(n, t) for n in BASELINES for t in ("float32", "float64")
+                  if not (n == "segnet" and t == "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", BASELINE_CASES)
+def test_baseline_forward_on_cuda_equals_cpu(name, dtype):
+    """DSRL (each backbone), KBPN + SegNet and SrcNetSR + PSPNet at full
+    width, LR 16 x 16, eval: the card against the same weights on the CPU,
+    TF32 off, to 1e-3 (float32) and 1e-6 (float64) of each output's largest
+    |value|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the forward runs on the card")
+    from pathlib import Path
+
+    from csbsr_tpu_torch.config import get_cfg_defaults
+    from csbsr_tpu_torch.models import model_from_cfg
+    from csbsr_tpu_torch.utils.device import full_fp32
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs" /
+                            "config_csbsr_pspnet.yaml"))
+    cfg.merge_from_list(BASELINES[name])
+    dt = getattr(torch, dtype)
+    x = torch.rand(2, 3, 16, 16, generator=torch.Generator().manual_seed(4), dtype=dt)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = model_from_cfg(cfg, device=device, dtype=dt, seed=3).to(dt)
+        with torch.inference_mode(), full_fp32():
+            outs[device] = model(x.to(device), clip_sr=True)
+    assert set(outs["cpu"]) == set(outs["cuda"])
     for key, ref in outs["cpu"].items():
         if ref is None:
             assert outs["cuda"][key] is None

@@ -55,6 +55,7 @@ from csbsr_tpu_torch.models.blocks import int8_modules, int8_serve, load_act_ama
 from csbsr_tpu_torch.ops import quant as pq
 from csbsr_tpu_torch.utils.convert import quant_from_jax, state_dict_from_jax
 from tests.test_torch_port_models import nchw, nhwc, random_variables, small_flagship_cfgs
+from tests.test_torch_port_baselines import BASELINES, baseline_cfgs, shallow_srcnet  # noqa: F401
 from tests.test_torch_port_zoo import RECIPES, narrow_hrnet, zoo_cfgs  # noqa: F401
 
 _BF16 = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -200,16 +201,19 @@ def _jax_quant_names(jcfg, scope="all"):
     return set(quant_from_jax(zeros))
 
 
-QUANT_SETS = ["flagship", *RECIPES, "flagship narrow", "unet16 deconv"]
+QUANT_SETS = ["flagship", *RECIPES, "flagship narrow", "unet16 deconv", *BASELINES]
 
 
 @pytest.mark.parametrize("name", QUANT_SETS)
-def test_quantized_set_equals_jax_quant_collection(name, narrow_hrnet):  # noqa: F811
+def test_quantized_set_equals_jax_quant_collection(name, narrow_hrnet,  # noqa: F811
+                                                   shallow_srcnet):  # noqa: F811
     scope = "narrow" if name.endswith("narrow") else "all"
     if name.startswith("flagship"):
         jcfg, cfg = small_flagship_cfgs()
     elif name == "unet16 deconv":
         jcfg, cfg = zoo_cfgs("unet16", extra=["MODEL.UP_SAMPLE_METHOD", "deconv"])
+    elif name in BASELINES:
+        jcfg, cfg = baseline_cfgs(name)
     else:
         jcfg, cfg = zoo_cfgs(name)
     expected = _jax_quant_names(jcfg, scope)

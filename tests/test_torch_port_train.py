@@ -262,9 +262,13 @@ def test_float32_joint_phase_gradient_loses_no_more_than_the_jax_package():
     port_factor = 2.0
     it, b = ITERATIONS[-1], 2
     worst = {}
-    steps = {}
+    steps, shapes = {}, None
     for seed, batch_seed in FLOAT32_INSTANCES:
-        jcfg, cfg, _, variables, model = joint_models(FLOAT32_SIZE, FLOAT32_STAGES, seed=seed)
+        # the second instance reuses the first one's shape tree (one trace of init)
+        jcfg, cfg, _, variables, model = joint_models(FLOAT32_SIZE, FLOAT32_STAGES, seed=seed,
+                                                      shapes=shapes)
+        shapes = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+                                        variables)
         for c in (jcfg, cfg):
             c.merge_from_list(WINDOWS)
         batch = _batch(hw=FLOAT32_SIZE, seed=batch_seed)
@@ -293,19 +297,13 @@ def test_float32_joint_phase_gradient_loses_no_more_than_the_jax_package():
                            lambda m: sdf(m).astype(jnp.float32))
                 if "64" not in steps:
                     steps["64"] = grad_fn(jnp.float64)
-                grads64 = jax.device_get(steps["64"](f64(variables["params"]),
-                                                     f64(variables["batch_stats"]), f64(batch)))
+                # dispatched, not awaited: XLA runs it while the port steps below
+                grads64 = steps["64"](f64(variables["params"]), f64(variables["batch_stats"]),
+                                      f64(batch))
                 mp.setattr(jax_seg_losses, "sdf_normalized", sdf)
             if "32" not in steps:
                 steps["32"] = grad_fn(jnp.float32)
-            jax32 = state_dict_from_jax(jax.device_get(
-                steps["32"](variables["params"], variables["batch_stats"], batch)))
-        # the float64 reference crosses as a float32 pair, hi + lo
-        hi = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), grads64)
-        lo = jax.tree_util.tree_map(lambda a, h: np.asarray(np.asarray(a) - h, np.float32),
-                                    grads64, hi)
-        hi, lo = state_dict_from_jax(hi), state_dict_from_jax(lo)
-        exact = {n: hi[n].double() + lo[n].double() for n in hi}
+            jax32 = steps["32"](variables["params"], variables["batch_stats"], batch)
 
         tb = {k: nchw(v) if v.ndim == 4 else torch.from_numpy(v) for k, v in batch.items()}
         _dropout_off(model.train())
@@ -315,6 +313,15 @@ def test_float32_joint_phase_gradient_loses_no_more_than_the_jax_package():
         port32 = {n: torch.zeros_like(p) if p.grad is None else p.grad
                   for n, p in model.named_parameters()}
         groups = grad_group_ids(port32.items())
+
+        grads64, jax32 = jax.device_get((grads64, jax32))
+        jax32 = state_dict_from_jax(jax32)
+        # the float64 reference crosses as a float32 pair, hi + lo
+        hi = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), grads64)
+        lo = jax.tree_util.tree_map(lambda a, h: np.asarray(np.asarray(a) - h, np.float32),
+                                    grads64, hi)
+        hi, lo = state_dict_from_jax(hi), state_dict_from_jax(lo)
+        exact = {n: hi[n].double() + lo[n].double() for n in hi}
 
         def rel_l2(grads, gid):
             names = [n for n in exact if groups[n] == gid]

@@ -2,9 +2,13 @@
 JAX package, on the CPU; the BlurSkip fine-tune's freeze and CrackFormer's
 side-map loss.
 
-Each recipe is cut to image 32, 2 KBPN stages, batch 2 (HRNet at width 8),
-with the flagship train tests' windows (iteration 6: the joint phase, SR
-and seg losses live, alpha 0.4) and dropout off on both sides. The wf recipe
+Each recipe is cut to image 32, batch 2 (HRNet at width 8); the float64
+train step, whose subject is the head, runs 1 KBPN stage, HRNet with one
+module in each of its stages 3 and 4 (depth, not width), and the BlurSkip
+ladder conditioned on 7 x 7 kernels (KERNEL_SIZE_OUTPUT 7: 49 condition
+channels instead of 441, its float64 convs the step's cost); the flagship
+train tests' windows (iteration 6: the joint phase, SR and seg losses live,
+alpha 0.4) and dropout off on both sides. The wf recipe
 (the flagship with the failure-oriented SR weight, m^f = 1) steps at
 WF_ITERATION, past its ORIENTED_WEIGHT_ITER of 30001, where the weight is
 live. The port runs
@@ -45,6 +49,8 @@ from tests.test_torch_port_train import ITERATIONS, NUM_TRAIN, WINDOWS, _batch, 
 from tests.test_torch_port_zoo import narrow_hrnet, zoo_cfgs, zoo_models  # noqa: F401
 
 TRAIN_RECIPES = ("dbpn", "unet16", "blurskip", "crackformer", "hrnet", "wf")
+STEP_STAGES = 1  # KBPN stages of the float64 steps
+STEP_KERNEL = {"blurskip": 7}  # KERNEL_SIZE_OUTPUT where not the recipe's 21
 WF_ITERATION = 30002  # the SR loss weights its maps from iteration > ORIENTED_WEIGHT_ITER
 # (loss, gradient and statistics) tolerances where a recipe needs more than
 # (1e-12, 1e-9): HRNet at image 32 runs train-mode BatchNorms over B = 2
@@ -104,9 +110,9 @@ def float64_steps(jcfg, cfg, variables, model, it, batch):
             losses = loss_j(out, jb, phase_j)
             return losses["total"], (losses, mutated.get("batch_stats", {}), out)
 
-        grads_j, (losses_j, stats_j, out_j) = jax.device_get(jax.jit(jax.grad(
-            _loss, has_aux=True))(f64(variables["params"]), f64(variables.get("batch_stats", {})),
-                                  f64(batch)))
+        # dispatched, not awaited: XLA runs it while the port steps below
+        pending = jax.jit(jax.grad(_loss, has_aux=True))(
+            f64(variables["params"]), f64(variables.get("batch_stats", {})), f64(batch))
 
     model.double()
     model.dtype = torch.float64
@@ -117,6 +123,7 @@ def float64_steps(jcfg, cfg, variables, model, it, batch):
                 sr_targets=tb["hr"])
     losses = build_loss_fn(cfg)(out, tb, phase)
     losses["total"].backward()
+    grads_j, (losses_j, stats_j, out_j) = jax.device_get(pending)
     assert phase["alpha"] == pytest.approx(float(phase_j["alpha"]))
     return ({"losses": losses_j, "grads": grads_j, "stats": stats_j, "outputs": out_j},
             {"losses": losses, "outputs": out, "phase": phase})
@@ -156,13 +163,32 @@ def assert_float64_steps_equal(jax_side, port_side, model, variables, loss_tol=1
     return stats
 
 
+@pytest.fixture
+def shallow_hrnet(monkeypatch):
+    """Both packages' HRNet backbones with one module in stages 3 and 4."""
+    import csbsr_tpu.models.hrnet_ocr as jax_hrnet
+    import csbsr_tpu_torch.models.hrnet_ocr as port_hrnet
+
+    for mod in (jax_hrnet, port_hrnet):
+        def stages(width, table=mod.hrnet_stages):
+            out = table(width)
+            for key in ("stage3", "stage4"):
+                out[key] = dict(out[key], num_modules=1)
+            return out
+
+        monkeypatch.setattr(mod, "hrnet_stages", stages)
+
+
 @pytest.mark.parametrize("name", TRAIN_RECIPES)
-def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet):  # noqa: F811
-    jcfg, cfg, _, variables, model = zoo_models(name, seed=9, extra=WINDOWS)
+def test_recipe_float64_train_step_equals_jax_float64(name, narrow_hrnet,  # noqa: F811
+                                                      shallow_hrnet):
+    k = STEP_KERNEL.get(name, 21)
+    jcfg, cfg, _, variables, model = zoo_models(
+        name, stages=STEP_STAGES, seed=9, extra=WINDOWS + ["BLUR.KERNEL_SIZE_OUTPUT", k])
     it = WF_ITERATION if name == "wf" else ITERATIONS[-1]
     assert name != "wf" or it > cfg.SOLVER.ORIENTED_WEIGHT_ITER > 0 and \
         cfg.SOLVER.SEG_FAIL_ORIENTED_WEIGHT4SR_AMP == 1.0
-    jax_side, port_side = float64_steps(jcfg, cfg, variables, model, it, _batch())
+    jax_side, port_side = float64_steps(jcfg, cfg, variables, model, it, _batch(k=k))
     loss_tol, grad_tol = TOLS.get(name, (1e-12, 1e-9))
     stats = assert_float64_steps_equal(jax_side, port_side, model, variables, loss_tol, grad_tol)
     alpha = port_side["phase"]["alpha"] if name == "wf" else 0.4
